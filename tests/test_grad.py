@@ -150,7 +150,7 @@ def test_tangent_ray_sphere_grads_finite():
     """Exact-tangent sphere hits (disc == 0 — representable at f32, and
     observed in the wild at 1024^2) must not leak sqrt'(0) = inf into the
     sphere-quadratic gradients (regression: ops/intersect._sphere_roots,
-    render_bwd._hit_from_row)."""
+    replay._hit_from_row)."""
     from uob_raytracer_tpu.ops.intersect import _sphere_roots, prepare_scene
 
     scene = cornell_box()

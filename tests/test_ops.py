@@ -85,6 +85,12 @@ def test_primary_hit_back_wall(ds):
     np.testing.assert_allclose(np.asarray(h.rgb)[0], [0.75, 0.75, 0.75])
 
 
+def _sphere_id(ds, center):
+    """Object id of the sphere at ``center``: T + sphere index."""
+    s = int(np.argmin(np.abs(np.asarray(ds.sph_c) - center).sum(axis=1)))
+    return ds.v0.shape[0] + s
+
+
 def test_sphere_hit_and_normal(ds):
     # Ray toward the glass sphere center from the camera: hits the near
     # surface; normal points back along the ray.
@@ -92,7 +98,7 @@ def test_sphere_hit_and_normal(ds):
     o = np.array([0.0, 0.0, -3.2], np.float32)
     d = (c - o) / np.linalg.norm(c - o)
     h = intersect(ds, jnp.asarray(o)[None], jnp.asarray(d)[None])
-    assert int(h.obj_id[0]) == -2 and float(h.mat[0]) == -1.0
+    assert int(h.obj_id[0]) == _sphere_id(ds, c) and float(h.mat[0]) == -1.0
     r = np.linalg.norm(np.asarray(h.pos)[0] - c)
     np.testing.assert_allclose(r, np.sqrt(0.075), rtol=1e-5)
     assert np.dot(np.asarray(h.normal)[0], d) < -0.99
@@ -103,7 +109,7 @@ def test_ray_from_inside_sphere(ds):
     o = jnp.array([[0.3, 0.1, -0.5]])
     d = jnp.array([[0.0, 0.0, 1.0]])
     h = intersect(ds, o, d)
-    assert int(h.obj_id[0]) == -2
+    assert int(h.obj_id[0]) == _sphere_id(ds, np.float32([0.3, 0.1, -0.5]))
     np.testing.assert_allclose(float(h.t[0]), np.sqrt(0.075), rtol=1e-5)
 
 

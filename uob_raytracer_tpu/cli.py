@@ -103,7 +103,6 @@ def cmd_fit(args):
     had): recover light position, a wall color, AND a vertex block from a
     target image with per-leaf Adam — the BASELINE config-5 parameter set —
     through the sharded renderer."""
-    import jax
     import jax.numpy as jnp
     from .parallel import fit, make_mesh, render_image_sharded
 
@@ -112,8 +111,6 @@ def cmd_fit(args):
                               height=min(cfg.height, 256))
     mesh = make_mesh(tp=1)
     backend = args.backend
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() != "cpu" else "jnp"
     # --lr scales every per-leaf Adam rate (1.0 = the tuned defaults).
     s_lr = args.lr
 
@@ -188,7 +185,9 @@ def main(argv=None):
         sp.add_argument("--config", default="full_1024")
         sp.add_argument("--width", type=int, default=0)
         sp.add_argument("--height", type=int, default=0)
-        sp.add_argument("--backend", default="auto")
+        sp.add_argument("--backend", default="auto",
+                        help="pallas | jnp; auto picks pallas "
+                             "on a GPU and jnp on the CPU")
         sp.add_argument("--obj", default=None)
         sp.add_argument("--yaw", type=float, default=0.0)
         sp.add_argument("--pitch", type=float, default=0.0)
@@ -213,4 +212,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from .cache import enable_compilation_cache
+    enable_compilation_cache()
     main()

@@ -1,1 +1,1 @@
-from .render_fwd import render_fused_raw, pack_scene, TILE_H, TILE_W  # noqa: F401
+from .render_fwd import render_fused, render_fused_res, pack_scene  # noqa: F401

@@ -1,39 +1,44 @@
-"""Fused Pallas TPU forward kernel: the whole per-pixel pipeline in one
-kernel launch.
+"""Fused forward kernel: the whole per-pixel pipeline in one launch, written
+for Pallas's Triton route (``backend="triton"``).
 
-This is the TPU analogue of the reference's single ``draw`` kernel
-(``Source/kernels.cl:368-428``): one grid program per pixel tile computes
-AA ray generation, brute-force nearest-hit over the whole scene, the
-specular bounce loop, one soft-shadow pass at the unified shading point,
-the AA average, and the ARGB pack — with every intermediate resident in
-VMEM/registers. The scene lives in SMEM and is broadcast scalar-by-scalar
-into vector ops, mirroring the reference's local-memory staging
-(``kernels.cl:374-376``) at the register level.
+This is the analogue of the reference's single ``draw`` kernel
+(``Source/kernels.cl:368-428``): one program per block of rays computes AA
+ray generation, brute-force nearest-hit over the whole scene, the specular
+bounce loop, one soft-shadow pass at the unified shading point and the AA
+average, with every intermediate in registers. The scene tables stay in
+global memory (a few KB for Cornell, 0.6 MB at 8k triangles: both live in
+L1/L2) and are read scalar-by-scalar, every thread of the block reading the
+same address, mirroring the reference's local-memory staging
+(``kernels.cl:374-376``).
 
-Layout: a tile is (AA, TILE_H, TILE_W) float32 per vector quantity —
-(8, 128) is the native f32 tile; the AA axis rides along as a leading dim so
-all four anti-aliasing rays of a pixel vectorize together. The bounce loop
-is a ``lax.while_loop`` with a tile-level early exit: tiles whose rays hold
-no specular surface leave after one ``any()`` check, which is how the
-wavefront formulation recovers the reference's per-ray loop exit
-(``kernels.cl:348``) without divergence.
+Layout: a block is (Ap, TW) float32 per vector quantity: the AA rays of TW
+adjacent pixels of one image row, with the AA count padded to a power of two
+(Triton's tensors must have power-of-two sizes). Padding AA rays are traced
+like any other and masked out of the average. The bounce loop is a
+``lax.while_loop`` with a block-level early exit: a block whose rays hold no
+specular surface leaves after one max-reduction, which is how the
+reference's per-ray loop exit (``kernels.cl:348``) maps onto SIMT blocks.
 """
 from __future__ import annotations
 
 import functools
-import os
+from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..config import RenderConfig
 from ..scene import Scene
 
-TILE_H = 8
-TILE_W = 128
+# Rays per program and warps per program. 256 rays on 4 warps is two rays
+# per thread: the bounce loop carries ~20 f32 per ray and the shadow pass
+# ~5 per sample, which keeps a block under the 255-register cap.
+RAYS_PER_BLOCK = 256
+NUM_WARPS = 4
+NUM_STAGES = 1
 
 # np scalars (not jnp): jnp scalars materialize as device arrays at import
 # time and would be flagged as captured constants by pallas_call.
@@ -42,19 +47,35 @@ _PI4 = np.float32(4.0 * np.pi)
 _BIG = np.float32(3.0e38)
 _UINT_MAX_F = np.float32(4294967295.0)  # == 2^32 in f32, as in the OpenCL
 
+# Table widths, padded to powers of two. tri row: v0 0:3, e1 3:6, e2 6:9,
+# n(unit) 9:12, rgb 12:15, mat 15, E=cross(e1,e2) 16:19. sph row: c 0:3,
+# r2 3, rgb 4:7, mat 7. cam: rot rows r0 r1 r2, camera, light, light_color,
+# indirect. shd row (ops/quads.py): v0 0:3, e1 3:6, e2 6:9, E 9:12, mat 12.
+TRI_COLS = 32
+SPH_COLS = 8
+CAM_LEN = 32
+SHD_COLS = 16
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _pad_pow2(tbl, cols: int):
+    """Zero-pad a table to a power-of-two row count and ``cols`` columns.
+    All-zero pad rows have E = 0 and hence a zero determinant: every accept
+    test rejects them, so they are inert wherever a scan reaches them."""
+    rows = tbl.shape[0]
+    return jnp.pad(tbl, ((0, _pow2(rows) - rows), (0, cols - tbl.shape[1])))
+
 
 # --------------------------------------------------------------------------
-# Scene packing: SoA pytree -> flat SMEM tables (traced, differentiable)
+# Scene packing: SoA pytree -> flat tables (traced, differentiable)
 # --------------------------------------------------------------------------
 
 def pack_scene(scene: Scene):
-    """Flatten the scene into (tri [T,19], sph [S',12], cam [24]) float32
-    tables for SMEM. tri row: v0, e1, e2, n(unit), rgb, mat, E=cross(e1,e2).
-    sph row: c, r2, rgb, mat, pad. cam: rot rows r0 r1 r2, camera, light,
-    light_color, indirect. Built inside the traced graph so gradients flow
-    back to every Scene leaf. (The streamed kernel re-packs the triangle
-    table with ``pack_streamed``, whose all-zero pad items have E = 0 and
-    hence detA exactly 0 — inert in every scan site.)"""
+    """Flatten the scene into (tri [T,19], sph [S,8], cam [21]) float32
+    tables. Built inside the traced graph from the Scene leaves."""
     v0 = scene.tri_v0
     e1 = scene.tri_v1 - v0
     e2 = scene.tri_v2 - v0
@@ -68,10 +89,9 @@ def pack_scene(scene: Scene):
     if scene.sph_center.shape[0]:
         sph = jnp.concatenate([
             scene.sph_center, scene.sph_r2[:, None], scene.sph_rgb,
-            scene.sph_mat[:, None],
-            jnp.zeros((scene.sph_center.shape[0], 4), _F)], axis=1)
+            scene.sph_mat[:, None]], axis=1)
     else:
-        sph = jnp.zeros((1, 12), _F)
+        sph = jnp.zeros((1, SPH_COLS), _F)
 
     cy, sy = jnp.cos(scene.yaw), jnp.sin(scene.yaw)
     cp, sp = jnp.cos(scene.pitch), jnp.sin(scene.pitch)
@@ -84,134 +104,13 @@ def pack_scene(scene: Scene):
     return tri, sph, cam
 
 
-# --------------------------------------------------------------------------
-# vec3-as-tuple helpers over (A, TILE_H, TILE_W) component arrays
-# --------------------------------------------------------------------------
-
-def _dot(a, b):
-    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
-
-
-def _sub(a, b):
-    return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
-
-
-def _add(a, b):
-    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
-
-
-def _scale(s, a):
-    return (s * a[0], s * a[1], s * a[2])
-
-
-def _det3(a, b, c):
-    """Cofactor expansion, rows (a,b,c) (kernels.cl:31-35)."""
-    return (a[0] * (b[1] * c[2] - b[2] * c[1])
-            - a[1] * (b[0] * c[2] - b[2] * c[0])
-            + a[2] * (b[0] * c[1] - b[1] * c[0]))
-
-
-def _where3(m, a, b):
-    return (jnp.where(m, a[0], b[0]), jnp.where(m, a[1], b[1]),
-            jnp.where(m, a[2], b[2]))
-
-
-def _xorshift3(s):
-    out = []
-    for v in s:
-        v = v ^ (v << jnp.uint32(13))
-        v = v ^ (v >> jnp.uint32(17))
-        v = v ^ (v << jnp.uint32(5))
-        out.append(v)
-    return tuple(out)
-
-
-def _u32_to_f32(v):
-    """uint32 -> float32 with round-to-nearest, via an exact hi/lo split
-    (Mosaic has no direct u32->f32 cast). hi*65536 and lo are both exactly
-    representable, so the single add rounds exactly like a direct convert."""
-    hi = pltpu.bitcast(v >> jnp.uint32(16), jnp.int32).astype(_F)
-    lo = pltpu.bitcast(v & jnp.uint32(0xFFFF), jnp.int32).astype(_F)
-    return hi * _F(65536.0) + lo
-
-
-def _f32_to_u32(v):
-    """float32 -> uint32 truncation for values < 2^31 (all our uses)."""
-    return pltpu.bitcast(v.astype(jnp.int32), jnp.uint32)
-
-
-def _crush3(s, rng):
-    r = _F(rng)
-    return tuple(r * _u32_to_f32(v) / _UINT_MAX_F - r / _F(2.0) for v in s)
-
-
-# --------------------------------------------------------------------------
-# Kernel
-# --------------------------------------------------------------------------
-
-def _cross(a, b):
-    return (a[1] * b[2] - a[2] * b[1],
-            a[2] * b[0] - a[0] * b[2],
-            a[0] * b[1] - a[1] * b[0])
-
-
-def _smem_tri_scan(tri_ref, n_tri: int):
-    """Triangle-scan strategy for the whole-table-in-SMEM kernel: one
-    fori_loop whose body reads triangle columns straight out of SMEM. The
-    body receives (get, gi, carry): get(col) -> scalar of the current
-    triangle, gi = global triangle index as f32."""
-    def scan(body, carry):
-        def wrap(i, c):
-            return body(lambda col: tri_ref[i, col], i.astype(_F), c)
-        return jax.lax.fori_loop(0, n_tri, wrap, carry)
-    return scan
-
-
-# Below this triangle count, per-object loops unroll at trace time (static
-# SMEM offsets, no loop-carry overhead — measurably faster on the Cornell
-# scenes); above it they run as fori_loops with dynamic SMEM indexing so
-# compile time stays O(1) in scene size.
-UNROLL_TRIANGLES = 64
-
-
-def _unrolled_tri_scan(tri_ref, n_tri: int):
-    """Same interface as _smem_tri_scan, unrolled at trace time."""
-    def scan(body, carry):
-        for i in range(n_tri):
-            carry = body(lambda col, i=i: tri_ref[i, col], _F(i), carry)
-        return carry
-    return scan
-
-
-def _smem_scan_range(ref, lo: int, hi: int, unroll: bool):
-    """Row-range scan over an SMEM table (same body interface as
-    ``_smem_tri_scan``) — used for the quads-then-triangles layout of the
-    shadow-geometry table."""
-    def scan(body, carry):
-        if unroll:
-            for i in range(lo, hi):
-                carry = body(lambda col, i=i: ref[i, col], _F(i), carry)
-            return carry
-
-        def wrap(i, c):
-            return body(lambda col: ref[i, col], i.astype(_F), c)
-        return jax.lax.fori_loop(lo, hi, wrap, carry)
-    return scan
-
-
-# Shadow-geometry table (ops/quads.py): parallelogram rows first, leftover
-# triangle rows after. Row: v0 0:3, e1 3:6, e2 6:9, E=cross(e1,e2) 9:12,
-# mat 12 (occlusion only needs the glass flag, kernels.cl:247,279).
-SHD_COLS = 13
-SHD_PACK = 9   # shd items per streamed row (9 * 13 = 117 <= 128 cols)
-
-
 def pack_shadow(scene: Scene, quads):
     """Pack the occlusion-scan geometry for a quad pairing from
     ``ops.quads.detect_shadow_quads``: ``n_quads`` parallelogram rows
     (spanned from triangle a's off-diagonal corner p by its two shared
-    vertices) followed by the unpaired triangles' rows. Built in the traced
-    graph from the current Scene leaves (pairing indices are static)."""
+    vertices) followed by the unpaired triangles' rows, 13 columns each.
+    Built in the traced graph from the current Scene leaves (pairing
+    indices are static)."""
     pairs, leftover = quads
     v = jnp.stack([scene.tri_v0, scene.tri_v1, scene.tri_v2], axis=1)
     rows = []
@@ -235,103 +134,160 @@ def pack_shadow(scene: Scene, quads):
     return jnp.concatenate(rows, axis=0).astype(_F)
 
 
-# Streamed-kernel layout: STREAM_PACK items are packed side-by-side into
-# each 128-lane HBM row (item k of row r at columns [k*item_cols,
-# (k+1)*item_cols)), so the mandatory 128-column alignment pad (Mosaic
-# requires minor-dim slices in multiples of 128) costs only 128 - 6*19 = 14
-# dead columns (~12%) instead of the 6.7x single-item-per-row inflation.
-# Blocks of STREAM_BLK rows (= 6*STREAM_BLK triangles) are double-buffered
-# into SMEM scratch; each buffer costs STREAM_BLK * STREAM_COLS * 4 B of
-# SMEM (16 KiB at 32).
-STREAM_PACK = 6     # triangles per streamed row (6 * 19 = 114 <= 128 cols)
-STREAM_BLK = 32
-STREAM_COLS = 128
+# --------------------------------------------------------------------------
+# vec3-as-tuple helpers over (Ap, TW) component arrays
+# --------------------------------------------------------------------------
+
+def _dot(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
 
 
-def pack_streamed(tbl, item_cols: int, pack: int):
-    """[N, item_cols] table -> [N/pack (rounded up to a STREAM_BLK
-    multiple), STREAM_COLS] streamed layout. Pad items are all-zero rows:
-    their E = cross(e1,e2) = 0 makes detA exactly 0, so every accept test
-    rejects them — inert in all scan sites (see pack_scene)."""
-    n = tbl.shape[0]
-    n_pad = _round_up(max(n, 1), pack * STREAM_BLK)
-    tbl = jnp.pad(tbl, ((0, n_pad - n), (0, 0)))
-    rows = tbl.reshape(n_pad // pack, pack * item_cols)
-    return jnp.pad(rows, ((0, 0), (0, STREAM_COLS - rows.shape[1])))
+def _sub(a, b):
+    return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
 
 
-def _streamed_scan(tbl_hbm, buf, sems, n_rows: int, item_cols: int,
-                   pack: int):
-    """Item-scan strategy over a packed streamed table (large scenes).
+def _add(a, b):
+    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
 
-    The table stays out of SMEM; blocks of STREAM_BLK rows are
-    double-buffered into SMEM scratch with async DMA so the copy of block
-    k+1 overlaps the scan of block k. Within a row the ``pack`` items
-    unroll at trace time (static column offsets). This removes the SMEM
-    capacity cap on scene size — the TPU analogue of tiling the reference's
-    async_work_group_copy staging (kernels.cl:374-376) over a table larger
-    than local memory. The body receives (get, gi, carry) with gi the
-    global ITEM index as f32."""
-    n_blocks = n_rows // STREAM_BLK
 
+def _scale(s, a):
+    return (s * a[0], s * a[1], s * a[2])
+
+
+def _cross(a, b):
+    return (a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
+
+
+def _det3(a, b, c):
+    """Cofactor expansion, rows (a,b,c) (kernels.cl:31-35)."""
+    return (a[0] * (b[1] * c[2] - b[2] * c[1])
+            - a[1] * (b[0] * c[2] - b[2] * c[0])
+            + a[2] * (b[0] * c[1] - b[1] * c[0]))
+
+
+def _where3(m, a, b):
+    return (jnp.where(m, a[0], b[0]), jnp.where(m, a[1], b[1]),
+            jnp.where(m, a[2], b[2]))
+
+
+def _ptx_f32(op: str, *args):
+    """One PTX f32 instruction applied elementwise: ``op $0, $1[, $2];``."""
+    args = jnp.broadcast_arrays(*(jnp.asarray(x, _F) for x in args))
+    operands = ", ".join(f"${i}" for i in range(len(args) + 1))
+    (out,) = plgpu.elementwise_inline_asm(
+        f"{op} {operands};", args=list(args),
+        constraints=",".join(["=f"] + ["f"] * len(args)), pack=1,
+        result_shape_dtypes=[jax.ShapeDtypeStruct(args[0].shape, _F)])
+    return out
+
+
+class _Arith(NamedTuple):
+    """Division and square root as the kernel computes them."""
+    div: Callable
+    sqrt: Callable
+
+
+# IEEE round-to-nearest f32 division and square root, as NumPy (the oracle)
+# computes them. Triton lowers ``/`` to div.full.f32 and sqrt to an
+# approximation (on an H100, 28 % of random quotients and 17 % of roots
+# differ from IEEE in the last bit), which moves rays and accept tests off
+# the oracle's by an ulp and flips marginal hits and shadow samples.
+_IEEE_TRITON = _Arith(div=lambda a, b: _ptx_f32("div.rn.f32", a, b),
+                      sqrt=lambda a: _ptx_f32("sqrt.rn.f32", a))
+# the Pallas interpreter runs on the CPU, whose XLA division and sqrt are
+# already IEEE
+_IEEE_INTERPRET = _Arith(div=jnp.divide, sqrt=jnp.sqrt)
+
+
+def _xorshift3(s):
+    out = []
+    for v in s:
+        v = v ^ (v << jnp.uint32(13))
+        v = v ^ (v >> jnp.uint32(17))
+        v = v ^ (v << jnp.uint32(5))
+        out.append(v)
+    return tuple(out)
+
+
+def _u32_to_f32(v):
+    """uint32 -> float32 with round-to-nearest, via an exact hi/lo split of
+    two non-negative int32 halves (a signed convert of the whole word would
+    misread values >= 2^31). hi*65536 and lo are both exactly representable,
+    so the single add rounds exactly like a direct unsigned convert."""
+    hi = jax.lax.bitcast_convert_type(v >> jnp.uint32(16), jnp.int32)
+    lo = jax.lax.bitcast_convert_type(v & jnp.uint32(0xFFFF), jnp.int32)
+    return hi.astype(_F) * _F(65536.0) + lo.astype(_F)
+
+
+def _f32_to_u32(v):
+    """float32 -> uint32 truncation for values < 2^31 (all our uses)."""
+    return jax.lax.bitcast_convert_type(v.astype(jnp.int32), jnp.uint32)
+
+
+def _crush3(s, rng, ar):
+    r = _F(rng)
+    return tuple(ar.div(r * _u32_to_f32(v), _UINT_MAX_F) - r / _F(2.0)
+                 for v in s)
+
+
+# --------------------------------------------------------------------------
+# Scans over scene tables
+# --------------------------------------------------------------------------
+
+def _scan(ref, lo: int, hi: int):
+    """Row-range scan over a table as a loop (unrolled scans of even the
+    26-triangle Cornell box take Triton minutes to compile). The body
+    receives (get, gi, carry): get(col) -> scalar of the current row,
+    gi = row index (int32)."""
     def scan(body, carry):
-        def copy(k, slot):
-            return pltpu.make_async_copy(
-                tbl_hbm.at[pl.ds(k * STREAM_BLK, STREAM_BLK)],
-                buf.at[slot], sems.at[slot])
-
-        copy(0, 0).start()
-
-        def outer(k, carry):
-            slot = jax.lax.rem(k, 2)
-
-            @pl.when(k + 1 < n_blocks)
-            def _():
-                copy(k + 1, jax.lax.rem(k + 1, 2)).start()
-
-            copy(k, slot).wait()
-
-            def inner(r, c):
-                base = ((k * STREAM_BLK + r) * pack).astype(_F)
-                for kk in range(pack):
-                    c = body(lambda col, kk=kk: buf[slot, r,
-                                                    kk * item_cols + col],
-                             base + _F(kk), c)
-                return c
-            return jax.lax.fori_loop(0, STREAM_BLK, inner, carry)
-
-        return jax.lax.fori_loop(0, n_blocks, outer, carry)
+        def wrap(i, c):
+            return body(lambda col: ref[i, col], i, c)
+        return jax.lax.fori_loop(lo, hi, wrap, carry)
     return scan
 
 
-def _streamed_tri_scan(tri_any, buf, sems, n_rows: int):
-    """Triangle-scan strategy for the streamed kernel: STREAM_PACK
-    triangles of TRI-table layout (19 cols) per streamed row."""
-    return _streamed_scan(tri_any, buf, sems, n_rows, 19, STREAM_PACK)
+def _sphere_roots(c, r2, start, d, ar):
+    """Stable quadratic roots (kernels.cl:140-143): (xmin, xmax, no_sol,
+    a_q) for one sphere against the ray bundle."""
+    L = _sub(start, c)
+    a_q = _dot(d, d)
+    b_q = _F(2.0) * _dot(d, L)
+    c_q = _dot(L, L) - r2
+    disc = b_q * b_q - _F(4.0) * a_q * c_q
+    no_sol = disc < 0
+    sq = ar.sqrt(jnp.where(no_sol, _F(1.0), disc))
+    q = jnp.where(b_q > 0, _F(-0.5) * (b_q + sq), _F(-0.5) * (b_q - sq))
+    qz = q == 0
+    x0 = ar.div(q, jnp.where(a_q == 0, _F(1.0), a_q))
+    x1 = jnp.where(qz, x0, ar.div(c_q, jnp.where(qz, _F(1.0), q)))
+    return jnp.minimum(x0, x1), jnp.maximum(x0, x1), no_sol, a_q
 
 
-def _lit_count(tri_scan, sph_ref, n_sph, start, sdir, state, radius_sq,
-               cfg: RenderConfig, shd_ref=None, n_quads: int = 0,
-               n_shd: int = 0, shd_scan=None, unroll: bool = True):
-    """Unoccluded-sample count for the soft-shadow pass — the hot loop.
+def _sph(sph_ref, i):
+    return ((sph_ref[i, 0], sph_ref[i, 1], sph_ref[i, 2]), sph_ref[i, 3],
+            (sph_ref[i, 4], sph_ref[i, 5], sph_ref[i, 6]), sph_ref[i, 7])
+
+
+def _lit_count(tri_ref, sph_ref, shd_ref, n_tri, n_sph, n_quads, n_shd,
+               start, sdir, state, radius_sq, cfg: RenderConfig, ar):
+    """Unoccluded-sample count for the soft-shadow pass, the hot loop.
 
     Two restructurings over the naive per-sample scan (identical semantics
     up to boundary-epsilon rounding):
     * determinants are linear in the ray direction, so the per-triangle
       invariants (E = e1 x e2 from the table, b, t_num = b.E, b x e2,
-      e1 x b) hoist out of the sample loop — each of the S jittered rays
+      e1 x b) hoist out of the sample loop: each of the S jittered rays
       costs only three dot products and the accept test;
     * the accept test is division-free: t >= 0 becomes t_num*detA >= 0,
       |t d|^2 < r^2 becomes t_num^2 |d|^2 < r^2 detA^2, and u,v,u+v tests
-      multiply through by detA — no reciprocal anywhere in the loop.
+      multiply through by detA.
 
-    shd_ref/n_quads/n_shd: optional quad-merged shadow-geometry table
-    (``pack_shadow`` / ``ops/quads.py``). Rows [0, n_quads) are
-    parallelograms — the same dot products with independent bounds
-    (0 <= u <= 1, 0 <= v <= 1) — each standing in for two triangles; rows
-    [n_quads, n_shd) are unpaired triangles. Halves the occlusion scan on
-    quad-heavy scenes (every Cornell wall/side face pairs)."""
-    shape = sdir[0].shape
+    With a quad table (``pack_shadow``), rows [0, n_quads) are
+    parallelograms, the same dot products with independent bounds
+    (0 <= u <= 1, 0 <= v <= 1), each standing in for two triangles; rows
+    [n_quads, n_shd) are unpaired triangles."""
     S = cfg.shadow_samples
     if cfg.cpu_ref:
         # CPU-ref semantics (skeleton.cpp:220-241): ONE unjittered hard
@@ -344,16 +300,11 @@ def _lit_count(tri_scan, sph_ref, n_sph, start, sdir, state, radius_sq,
         dirs, dds = [], []
         for _ in range(S):
             state = _xorshift3(state)
-            j3 = _crush3(state, cfg.light_spread)
-            ds = _add(sdir, j3)
+            ds = _add(sdir, _crush3(state, cfg.light_spread, ar))
             dirs.append(ds)
             dds.append(_dot(ds, ds))
 
-    def occ_body(ecol: int, mcol: int, quad):
-        """quad: True/False for a homogeneous scan range, or "by_gi" for the
-        streamed mixed scan (item gi < n_quads is a parallelogram row) —
-        costing one scalar compare + one select per sample over the
-        homogeneous form."""
+    def occ_body(ecol: int, mcol: int, quad: bool):
         def body(get, gi, occs):
             v0 = (get(0), get(1), get(2))
             e1 = (get(3), get(4), get(5))
@@ -364,220 +315,150 @@ def _lit_count(tri_scan, sph_ref, n_sph, start, sdir, state, radius_sq,
             t_num2 = t_num * t_num
             B2 = _cross(b, e2)
             B1 = _cross(e1, b)
-            # CPU-ref occlusion has no material logic — every triangle
+            # CPU-ref occlusion has no material logic: every triangle
             # occludes (skeleton.cpp:220-241); the GPU path skips glass
             # (kernels.cl:247,279).
-            not_glass = (jnp.bool_(True) if cfg.cpu_ref
-                         else get(mcol) != _F(-1.0))
-            is_quad = gi < _F(n_quads) if quad == "by_gi" else None
+            not_glass = True if cfg.cpu_ref else get(mcol) != _F(-1.0)
             new = []
             for s in range(S):
                 dA = -_dot(dirs[s], E)
                 u_n = -_dot(dirs[s], B2)
                 v_n = -_dot(dirs[s], B1)
                 dA2 = dA * dA
-                base = ((t_num * dA >= 0)
-                        & (t_num2 * dds[s] < radius_sq * dA2)
-                        & (u_n * dA >= 0) & (v_n * dA >= 0))
-                # quad: parallelogram bounds; dA == 0 is rejected by the
-                # strict t-window test (both sides 0). tri: simplex bound.
-                inb_q = (u_n * dA <= dA2) & (v_n * dA <= dA2)
-                inb_t = ((u_n + v_n) * dA <= dA2) & (dA != 0)
-                if quad == "by_gi":
-                    # logical blend, not jnp.where: Mosaic cannot legalize
-                    # a scalar-predicated arith.select over i1 vectors
-                    inb = (is_quad & inb_q) | (~is_quad & inb_t)
+                hit = ((t_num * dA >= 0)
+                       & (t_num2 * dds[s] < radius_sq * dA2)
+                       & (u_n * dA >= 0) & (v_n * dA >= 0))
+                if quad:
+                    # dA == 0 is rejected by the strict t-window test
+                    hit = hit & (u_n * dA <= dA2) & (v_n * dA <= dA2)
                 else:
-                    inb = inb_q if quad else inb_t
-                hit = base & inb & not_glass
-                new.append(jnp.maximum(occs[s],
-                                       jnp.where(hit, _F(1.0), _F(0.0))))
+                    hit = hit & ((u_n + v_n) * dA <= dA2) & (dA != 0)
+                new.append(occs[s] | (hit & not_glass))
             return tuple(new)
         return body
 
-    occs0 = tuple(jnp.zeros(shape) for _ in range(S))
-    if shd_scan is not None:
-        occs = shd_scan(occ_body(9, 12, quad="by_gi"), occs0)
-    elif shd_ref is not None:
-        unr = unroll and n_shd <= UNROLL_TRIANGLES
-        occs = _smem_scan_range(shd_ref, 0, n_quads, unr)(
-            occ_body(9, 12, quad=True), occs0)
-        occs = _smem_scan_range(shd_ref, n_quads, n_shd, unr)(
-            occ_body(9, 12, quad=False), occs)
+    occs = tuple(jnp.zeros(start[0].shape, jnp.bool_) for _ in range(S))
+    if shd_ref is not None:
+        occs = _scan(shd_ref, 0, n_quads)(occ_body(9, 12, True), occs)
+        occs = _scan(shd_ref, n_quads, n_shd)(occ_body(9, 12, False), occs)
     else:
-        occs = tri_scan(occ_body(16, 15, quad=False), occs0)
+        occs = _scan(tri_ref, 0, n_tri)(occ_body(16, 15, False), occs)
     occs = list(occs)
 
     for i in range(n_sph):
-        c = (sph_ref[i, 0], sph_ref[i, 1], sph_ref[i, 2])
-        r2 = sph_ref[i, 3]
-        not_glass = sph_ref[i, 7] != _F(-1.0)
-        L = _sub(start, c)
-        c_q = _dot(L, L) - r2
+        c, r2, _, mat = _sph(sph_ref, i)
+        not_glass = mat != _F(-1.0)
         for s in range(S):
-            a_q = dds[s]
-            b_q = _F(2.0) * _dot(dirs[s], L)
-            disc = b_q * b_q - _F(4.0) * a_q * c_q
-            no_sol = disc < 0
-            sq = jnp.sqrt(jnp.where(no_sol, _F(1.0), disc))
-            q = jnp.where(b_q > 0, _F(-0.5) * (b_q + sq),
-                          _F(-0.5) * (b_q - sq))
-            qz = q == 0
-            x0 = q / jnp.where(a_q == 0, _F(1.0), a_q)
-            x1 = jnp.where(qz, x0, c_q / jnp.where(qz, _F(1.0), q))
-            xmin = jnp.minimum(x0, x1)
-            xmax = jnp.maximum(x0, x1)
+            xmin, xmax, no_sol, a_q = _sphere_roots(c, r2, start, dirs[s],
+                                                    ar)
             hit = (~no_sol & not_glass
                    & (((xmin >= 0) & (xmin * xmin * a_q < radius_sq))
                       | ((xmax >= 0) & (xmax * xmax * a_q < radius_sq))))
-            occs[s] = jnp.maximum(occs[s], jnp.where(hit, _F(1.0), _F(0.0)))
+            occs[s] = occs[s] | hit
 
-    lit = jnp.full(shape, _F(S))
+    lit = jnp.full(start[0].shape, _F(S))
     for s in range(S):
-        lit = lit - occs[s]
+        lit = lit - occs[s].astype(_F)
     return lit
 
 
-def _nearest_hit_primary(tri_scan, sph_ref, n_tri, n_sph, cam, d,
-                         gather_scan=None):
+def _gather_tri(tri_ref, idx, n_tri: int, start_col: int, n_cols: int,
+                default: float):
+    """Columns of the triangle each ray hit (idx in [0, n_tri)), ``default``
+    where it hit none: one gather per column from the L1-resident table."""
+    is_tri = (idx >= 0) & (idx < n_tri)
+    ti = jnp.where(is_tri, idx, 0)
+    return tuple(jnp.where(is_tri, tri_ref[ti, start_col + k], _F(default))
+                 for k in range(n_cols))
+
+
+def _sphere_winners(sph_ref, n_tri, n_sph, start, d, t_b, idx, ar):
+    """Spheres after the triangle scan, strict < against the triangle best
+    (kernels.cl:140-166): updated (t_b, idx)."""
+    for i in range(n_sph):
+        c, r2, _, _ = _sph(sph_ref, i)
+        xmin, xmax, no_sol, _ = _sphere_roots(c, r2, start, d, ar)
+        cand = jnp.where(xmin >= 0, xmin, xmax)
+        ok = ~no_sol & (cand >= 0) & (cand < t_b)
+        t_b = jnp.where(ok, cand, t_b)
+        idx = jnp.where(ok, np.int32(n_tri + i), idx)
+    return t_b, idx
+
+
+def _sphere_attrs(sph_ref, n_tri, n_sph, idx, pos, nrm, rgb, mat, ar):
+    """Overwrite shading attributes where a sphere won."""
+    for i in range(n_sph):
+        c, _, srgb, smat = _sph(sph_ref, i)
+        m = idx == np.int32(n_tri + i)
+        pc = _sub(pos, c)
+        pclen = ar.sqrt(jnp.maximum(_dot(pc, pc), _F(1e-30)))
+        nrm = _where3(m, _scale(ar.div(_F(1.0), pclen), pc), nrm)
+        rgb = _where3(m, srgb, rgb)
+        mat = jnp.where(m, smat, mat)
+    return nrm, rgb, mat
+
+
+def _nearest_hit_primary(tri_ref, sph_ref, n_tri, n_sph, cam, d, ar):
     """Nearest hit for the primary bundle, exploiting the uniform ray origin
     (every AA ray starts at the camera, ``kernels.cl:388-396``).
 
     With a shared origin the Möller–Trumbore system's b-vector, t-numerator
-    and the two cross-product columns are per-triangle *scalars* — they hoist
-    onto the scalar unit, and the vector loop per triangle shrinks to three
-    3-dots, one divide and the accept test, carrying only (t_best, id). The
-    winning object's shading attributes are reconstructed once after the
-    scan (hit position as start + t*d — same point as the u/v form up to
-    rounding). ~3x fewer VPU ops than the general scan. Works through any
-    scan strategy (whole-table SMEM or streamed): the per-triangle
-    invariants read scalars from SMEM either way.
-
-    gather_scan=None (the streamed kernel) merges the winner-attribute
-    selects INTO the single scan: same op count as the two-pass split
-    (the gather pass costs one compare + 7 selects per item anyway) but
-    only ONE DMA sweep of the HBM-resident table instead of two — the
-    table traffic halves (VERDICT r3 task 7)."""
+    and the two cross-product columns are per-triangle *scalars*, so the
+    per-ray work per triangle shrinks to three 3-dots, one divide and the
+    accept test, carrying only (t_best, id). The winner's shading attributes
+    are gathered once after the scan (hit position as start + t*d, the same
+    point as the u/v form up to rounding)."""
     shape = d[0].shape
-    inf = jnp.full(shape, _BIG)
-    zero = jnp.zeros(shape)
-    merged = gather_scan is None
 
-    def tri_core(get, carry_t):
-        """Shared-origin accept test; returns (ok, t)."""
+    def tri_body(get, gi, carry):
+        t_b, idx = carry
         v0 = (get(0), get(1), get(2))
         e1 = (get(3), get(4), get(5))
         e2 = (get(6), get(7), get(8))
         E = (get(16), get(17), get(18))       # cross(e1, e2), precomputed
-        # scalar per-triangle invariants (shared ray origin)
-        b = (cam[0] - v0[0], cam[1] - v0[1], cam[2] - v0[2])
-        t_num = b[0] * E[0] + b[1] * E[1] + b[2] * E[2]
+        b = _sub(cam, v0)                     # scalar per-triangle invariants
+        t_num = _dot(b, E)
         B2 = _cross(b, e2)
         B1 = _cross(e1, b)
         dA = -_dot(d, E)
         degen = dA == 0
-        rA = _F(1.0) / jnp.where(degen, _F(1.0), dA)
+        rA = ar.div(_F(1.0), jnp.where(degen, _F(1.0), dA))
         t = t_num * rA
         u = -_dot(d, B2) * rA
         v = -_dot(d, B1) * rA
         ok = ((t >= 0) & (u >= 0) & (v >= 0) & ((u + v) <= 1)
-              & ~degen & (t < carry_t))
-        return ok, t
+              & ~degen & (t < t_b))
+        return jnp.where(ok, t, t_b), jnp.where(ok, gi, idx)
 
-    if merged:
-        def tri_body(get, gi, carry):
-            t_b, nx, ny, nz, cr, cg, cb, mat, idf = carry
-            ok, t = tri_core(get, t_b)
-            return (jnp.where(ok, t, t_b),
-                    jnp.where(ok, get(9), nx), jnp.where(ok, get(10), ny),
-                    jnp.where(ok, get(11), nz), jnp.where(ok, get(12), cr),
-                    jnp.where(ok, get(13), cg), jnp.where(ok, get(14), cb),
-                    jnp.where(ok, get(15), mat), jnp.where(ok, gi, idf))
+    t_b, idx = _scan(tri_ref, 0, n_tri)(
+        tri_body, (jnp.full(shape, _BIG), jnp.full(shape, -1, jnp.int32)))
+    start = tuple(jnp.full(shape, c) for c in cam)
+    t_b, idx = _sphere_winners(sph_ref, n_tri, n_sph, start, d, t_b, idx,
+                               ar)
 
-        carry = tri_scan(tri_body, (inf, zero, zero, zero, zero, zero,
-                                    zero, jnp.ones(shape),
-                                    jnp.full(shape, _F(-1.0))))
-        t_b, nx, ny, nz, cr, cg, cb, mat, idf = carry
-    else:
-        def tri_body(get, gi, carry):
-            t_b, idf = carry
-            ok, t = tri_core(get, t_b)
-            return (jnp.where(ok, t, t_b),
-                    jnp.where(ok, gi, idf))
-
-        t_b, idf = tri_scan(tri_body, (inf, jnp.full(shape, _F(-1.0))))
-
-    for i in range(n_sph):
-        c = (sph_ref[i, 0], sph_ref[i, 1], sph_ref[i, 2])
-        r2 = sph_ref[i, 3]
-        L = (cam[0] - c[0], cam[1] - c[1], cam[2] - c[2])
-        a_q = _dot(d, d)
-        b_q = _F(2.0) * (d[0] * L[0] + d[1] * L[1] + d[2] * L[2])
-        c_q = L[0] * L[0] + L[1] * L[1] + L[2] * L[2] - r2
-        disc = b_q * b_q - _F(4.0) * a_q * c_q
-        no_sol = disc < 0
-        sq = jnp.sqrt(jnp.where(no_sol, _F(1.0), disc))
-        q = jnp.where(b_q > 0, _F(-0.5) * (b_q + sq), _F(-0.5) * (b_q - sq))
-        qz = q == 0
-        x0 = q / jnp.where(a_q == 0, _F(1.0), a_q)
-        x1 = jnp.where(qz, x0, c_q / jnp.where(qz, _F(1.0), q))
-        xmin = jnp.minimum(x0, x1)
-        xmax = jnp.maximum(x0, x1)
-        cand = jnp.where(xmin >= 0, xmin, xmax)
-        ok = ~no_sol & (cand >= 0) & (cand < t_b)
-        t_b = jnp.where(ok, cand, t_b)
-        idf = jnp.where(ok, _F(n_tri + i), idf)
-
-    # --- winner reconstruction: hit position from t; attributes either
-    # carried by the merged scan (streamed) or gathered in a second pass
-    # over the SMEM-resident table (small scenes, where the unrolled
-    # gather is cheaper than widening the scan carry) ---
     hit = t_b < _BIG
-    t_s = jnp.where(hit, t_b, _F(0.0))
-    start = tuple(jnp.broadcast_to(jnp.reshape(c, (1, 1, 1)), shape)
-                  for c in cam)
-    pos = _add(start, _scale(t_s, d))
+    zero = jnp.zeros(shape)
+    pos = _add(start, _scale(jnp.where(hit, t_b, _F(0.0)), d))
     pos = _where3(hit, pos, (zero, zero, zero))
-
-    if not merged:
-        def gather_body(get, gi, carry):
-            nx, ny, nz, cr, cg, cb, mat = carry
-            m = idf == gi
-            return (jnp.where(m, get(9), nx), jnp.where(m, get(10), ny),
-                    jnp.where(m, get(11), nz), jnp.where(m, get(12), cr),
-                    jnp.where(m, get(13), cg), jnp.where(m, get(14), cb),
-                    jnp.where(m, get(15), mat))
-
-        nx, ny, nz, cr, cg, cb, mat = gather_scan(
-            gather_body,
-            (zero, zero, zero, zero, zero, zero, jnp.ones(shape)))
-    nrm = (nx, ny, nz)
-    rgb = (cr, cg, cb)
-    for i in range(n_sph):
-        m = idf == _F(n_tri + i)
-        pc = _sub(pos, (sph_ref[i, 0], sph_ref[i, 1], sph_ref[i, 2]))
-        pclen = jnp.sqrt(jnp.maximum(_dot(pc, pc), _F(1e-30)))
-        nrm = _where3(m, _scale(_F(1.0) / pclen, pc), nrm)
-        rgb = _where3(m, (sph_ref[i, 4], sph_ref[i, 5], sph_ref[i, 6]), rgb)
-        mat = jnp.where(m, sph_ref[i, 7], mat)
-    return t_b, pos, nrm, rgb, mat, idf
+    nrm = _gather_tri(tri_ref, idx, n_tri, 9, 3, 0.0)
+    rgb = _gather_tri(tri_ref, idx, n_tri, 12, 3, 0.0)
+    (mat,) = _gather_tri(tri_ref, idx, n_tri, 15, 1, 1.0)
+    nrm, rgb, mat = _sphere_attrs(sph_ref, n_tri, n_sph, idx, pos, nrm, rgb,
+                                  mat, ar)
+    return t_b, pos, nrm, rgb, mat, idx
 
 
-def _nearest_hit(tri_scan, sph_ref, n_tri, n_sph, start, d):
-    """Brute-force nearest hit for the ray bundle (start, d). Returns
-    (t, pos, normal, rgb, mat, id_f) as select-accumulated tile arrays — the
-    TPU-native form of the reference's running-best scan
-    (kernels.cl:92-166): no argmin gather, just masked selects. id_f is the
-    hit object id as f32 (exact for id < 2^24): -1 miss, i for triangle i,
-    n_tri + s for sphere s — the residual the path-replay backward keys on.
-    n_tri is the LOGICAL triangle count (sphere id base); the scan strategy
-    owns the loop bound (which may cover inert pad rows)."""
+def _nearest_hit(tri_ref, sph_ref, n_tri, n_sph, start, d, ar):
+    """Brute-force nearest hit for the ray bundle (start, d): the running-
+    best scan of the reference (kernels.cl:92-166) carrying (t, u, v, id),
+    then one gather of the winner's attributes. Returns (t, pos, normal,
+    rgb, mat, id): id -1 miss, i for triangle i, n_tri + s for sphere s
+    (the residual the path-replay backward keys on)."""
     shape = d[0].shape
-    inf = jnp.full(shape, _BIG)
     zero = jnp.zeros(shape)
 
     def tri_body(get, gi, carry):
-        t_b, px, py, pz, nx, ny, nz, cr, cg, cb, mat, idf = carry
+        t_b, u_b, v_b, idx = carry
         v0 = (get(0), get(1), get(2))
         e1 = (get(3), get(4), get(5))
         e2 = (get(6), get(7), get(8))
@@ -585,159 +466,106 @@ def _nearest_hit(tri_scan, sph_ref, n_tri, n_sph, start, d):
         nd = (-d[0], -d[1], -d[2])
         detA = _det3(nd, e1, e2)
         degen = detA == 0
-        recip = _F(1.0) / jnp.where(degen, _F(1.0), detA)
+        recip = ar.div(_F(1.0), jnp.where(degen, _F(1.0), detA))
         t = _det3(b, e1, e2) * recip
         u = _det3(nd, b, e2) * recip
         v = _det3(nd, e1, b) * recip
         ok = ((t >= 0) & (u >= 0) & (v >= 0) & ((u + v) <= 1)
               & ~degen & (t < t_b))
-        pos = _add(v0, _add(_scale(u, e1), _scale(v, e2)))
-        nrm = (get(9), get(10), get(11))
-        return (jnp.where(ok, t, t_b),
-                jnp.where(ok, pos[0], px), jnp.where(ok, pos[1], py),
-                jnp.where(ok, pos[2], pz),
-                jnp.where(ok, nrm[0], nx), jnp.where(ok, nrm[1], ny),
-                jnp.where(ok, nrm[2], nz),
-                jnp.where(ok, get(12), cr),
-                jnp.where(ok, get(13), cg),
-                jnp.where(ok, get(14), cb),
-                jnp.where(ok, get(15), mat),
-                jnp.where(ok, gi, idf))
+        return (jnp.where(ok, t, t_b), jnp.where(ok, u, u_b),
+                jnp.where(ok, v, v_b), jnp.where(ok, gi, idx))
 
-    carry = (inf, zero, zero, zero, zero, zero, zero, zero, zero, zero,
-             jnp.ones(shape), jnp.full(shape, _F(-1.0)))
-    carry = tri_scan(tri_body, carry)
-    t_b, px, py, pz, nx, ny, nz, cr, cg, cb, mat, idf = carry
+    t_b, u_b, v_b, idx = _scan(tri_ref, 0, n_tri)(
+        tri_body, (jnp.full(shape, _BIG), zero, zero,
+                   jnp.full(shape, -1, jnp.int32)))
+    v0 = _gather_tri(tri_ref, idx, n_tri, 0, 3, 0.0)
+    e1 = _gather_tri(tri_ref, idx, n_tri, 3, 3, 0.0)
+    e2 = _gather_tri(tri_ref, idx, n_tri, 6, 3, 0.0)
+    pos = _add(v0, _add(_scale(u_b, e1), _scale(v_b, e2)))
+    nrm = _gather_tri(tri_ref, idx, n_tri, 9, 3, 0.0)
+    rgb = _gather_tri(tri_ref, idx, n_tri, 12, 3, 0.0)
+    (mat,) = _gather_tri(tri_ref, idx, n_tri, 15, 1, 1.0)
 
-    for i in range(n_sph):
-        c = (sph_ref[i, 0], sph_ref[i, 1], sph_ref[i, 2])
-        r2 = sph_ref[i, 3]
-        L = _sub(start, c)
-        a_q = _dot(d, d)
-        b_q = _F(2.0) * _dot(d, L)
-        c_q = _dot(L, L) - r2
-        disc = b_q * b_q - _F(4.0) * a_q * c_q
-        no_sol = disc < 0
-        sq = jnp.sqrt(jnp.where(no_sol, _F(1.0), disc))
-        q = jnp.where(b_q > 0, _F(-0.5) * (b_q + sq), _F(-0.5) * (b_q - sq))
-        qz = q == 0
-        x0 = q / jnp.where(a_q == 0, _F(1.0), a_q)
-        x1 = jnp.where(qz, x0, c_q / jnp.where(qz, _F(1.0), q))
-        xmin = jnp.minimum(x0, x1)
-        xmax = jnp.maximum(x0, x1)
-        cand = jnp.where(xmin >= 0, xmin, xmax)
-        ok = ~no_sol & (cand >= 0) & (cand < t_b)
-        pos = _add(start, _scale(cand, d))
-        pc = _sub(pos, c)
-        pclen = jnp.sqrt(jnp.maximum(_dot(pc, pc), _F(1e-30)))
-        t_b = jnp.where(ok, cand, t_b)
-        px = jnp.where(ok, pos[0], px)
-        py = jnp.where(ok, pos[1], py)
-        pz = jnp.where(ok, pos[2], pz)
-        nx = jnp.where(ok, pc[0] / pclen, nx)
-        ny = jnp.where(ok, pc[1] / pclen, ny)
-        nz = jnp.where(ok, pc[2] / pclen, nz)
-        cr = jnp.where(ok, sph_ref[i, 4], cr)
-        cg = jnp.where(ok, sph_ref[i, 5], cg)
-        cb = jnp.where(ok, sph_ref[i, 6], cb)
-        mat = jnp.where(ok, sph_ref[i, 7], mat)
-        idf = jnp.where(ok, _F(n_tri + i), idf)
+    t_tri = t_b
+    t_b, idx = _sphere_winners(sph_ref, n_tri, n_sph, start, d, t_b, idx,
+                               ar)
+    sph_won = t_b < t_tri
+    pos = _where3(sph_won, _add(start, _scale(t_b, d)), pos)
+    nrm, rgb, mat = _sphere_attrs(sph_ref, n_tri, n_sph, idx, pos, nrm, rgb,
+                                  mat, ar)
+    return t_b, pos, nrm, rgb, mat, idx
 
-    return t_b, (px, py, pz), (nx, ny, nz), (cr, cg, cb), mat, idf
 
+# --------------------------------------------------------------------------
+# Kernel
+# --------------------------------------------------------------------------
 
 def _render_kernel(tri_ref, sph_ref, cam_ref, off_ref, *refs,
-                   cfg: RenderConfig, n_tri: int, n_sph: int,
-                   n_rows: int, streamed: bool = False,
-                   with_residuals: bool = False, n_quads: int = 0,
-                   n_shd: int = 0, unroll: bool = True):
+                   cfg: RenderConfig, n_tri: int, n_sph: int, ap: int,
+                   tw: int, n_col: int, n_quads: int, n_shd: int,
+                   residuals: bool, interpret: bool):
     if n_shd:
         shd_ref, *refs = refs
     else:
         shd_ref = None
-    img_ref, packed_ref, *res_refs = refs
-    shd_scan = None
-    if streamed:
-        if n_shd:
-            (*res_refs, tri_buf, tri_sems, shd_buf, shd_sems) = res_refs
-            shd_scan = _streamed_scan(shd_ref, shd_buf, shd_sems,
-                                      shd_ref.shape[0], SHD_COLS, SHD_PACK)
-        else:
-            *res_refs, tri_buf, tri_sems = res_refs
-        tri_scan = _streamed_tri_scan(tri_ref, tri_buf, tri_sems, n_rows)
-    else:
-        tri_scan = _smem_tri_scan(tri_ref, n_rows)
-    if with_residuals:
-        # pid: primary hit object id; lit: unoccluded shadow-sample count;
-        # bid: per-bounce hit object id — the decision record consumed by
-        # the path-replay backward (ops/replay.py).
-        if cfg.bounces > 0:
-            pid_ref, lit_ref, bid_ref = res_refs
-        else:
-            pid_ref, lit_ref = res_refs
-            bid_ref = None
-    i = pl.program_id(0)
-    j = pl.program_id(1)
+    r_ref, g_ref, b_ref, *res_refs = refs
+    if residuals:
+        # pid: primary hit object id; lit: unoccluded shadow-sample count
+        # (0 where the ray has no shading point); bid: per-bounce hit
+        # object id. The decision record consumed by the path-replay
+        # backward (ops/replay.py).
+        pid_ref, lit_ref, *bid = res_refs
+        bid_ref = bid[0] if bid else None
+    ar = _IEEE_INTERPRET if interpret else _IEEE_TRITON
+    blk = pl.program_id(0)
     A = cfg.aa_rays
     ax, ay = cfg.aa_x, cfg.aa_y
     W, H = cfg.width, cfg.height
+    shape = (ap, tw)
 
     # off_ref[0]: global row offset of this launch (0 for a full frame;
     # the dp-shard's first row when rendering a row band under shard_map)
-    ys = (off_ref[0] + i * TILE_H
-          + jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 0))
-    xs = (j * TILE_W
-          + jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 1))
-    gid_i = ys * W + xs            # pixel ids < 2^24: exact in i32 and f32
-    gid = pltpu.bitcast(gid_i, jnp.uint32)
-    gid = jnp.broadcast_to(gid[None], (A, TILE_H, TILE_W))
+    row = off_ref[0] + blk // n_col
+    xs = ((blk % n_col) * tw
+          + jax.lax.broadcasted_iota(jnp.int32, shape, 1))
+    ys = jnp.full(shape, row)
+    gid = jax.lax.bitcast_convert_type(ys * W + xs, jnp.uint32)  # < 2^24
+    aa = jax.lax.broadcasted_iota(jnp.int32, shape, 0)
 
-    r0 = (cam_ref[0], cam_ref[1], cam_ref[2])
-    r1 = (cam_ref[3], cam_ref[4], cam_ref[5])
-    r2 = (cam_ref[6], cam_ref[7], cam_ref[8])
-    cam = (cam_ref[9], cam_ref[10], cam_ref[11])
-    light = (cam_ref[12], cam_ref[13], cam_ref[14])
-    light_rgb = (cam_ref[15], cam_ref[16], cam_ref[17])
-    indirect = (cam_ref[18], cam_ref[19], cam_ref[20])
+    cam_vals = [cam_ref[k] for k in range(21)]
+    r0, r1, r2 = cam_vals[0:3], cam_vals[3:6], cam_vals[6:9]
+    cam = tuple(cam_vals[9:12])
+    light = tuple(cam_vals[12:15])
+    light_rgb = cam_vals[15:18]
+    indirect = cam_vals[18:21]
 
     # --- AA ray generation (kernels.cl:384-407) ---
-    xsf = xs.astype(_F)
-    ysf = ys.astype(_F)
-    bx0 = xsf * _F(ax) - _F(W * ax / 2.0)
-    by0 = ysf * _F(ay) - _F(H * ay / 2.0)
-    focal = _F(cfg.effective_focal)
-    dx = jnp.stack([bx0 + _F(a % ax) for a in range(A)])
-    dy = jnp.stack([by0 + _F(a // ax) for a in range(A)])
-    dz = jnp.full((A, TILE_H, TILE_W), focal)
-    b = (dx, dy, dz)
+    bx = (xs.astype(_F) * _F(ax) - _F(W * ax / 2.0)
+          + (aa % ax).astype(_F))
+    by = (ys.astype(_F) * _F(ay) - _F(H * ay / 2.0)
+          + (aa // ax).astype(_F))
+    bz = jnp.full(shape, _F(cfg.effective_focal))
+    b = (bx, by, bz)
     d = (_dot(r0, b), _dot(r1, b), _dot(r2, b))
     if not cfg.cpu_ref:   # CPU-ref rays stay unnormalized (skeleton.cpp:259)
-        dlen = jnp.sqrt(_dot(d, d))   # divide (not recip-multiply): parity
-        d = (d[0] / dlen, d[1] / dlen, d[2] / dlen)  # w/ oracle's normalize
+        dlen = ar.sqrt(_dot(d, d))   # divide (not recip-multiply): parity
+        d = (ar.div(d[0], dlen), ar.div(d[1], dlen),  # w/ oracle's normalize
+             ar.div(d[2], dlen))
 
-    # --- primary intersection: shared-origin fast path (per-triangle
-    # invariants on the scalar unit) through either scan strategy ---
-    if streamed:
-        gather_scan = None
-    else:   # small scenes: unroll the winner gather (static SMEM offsets;
-            # interpret mode keeps the fori form for compile time)
-        gather_scan = (_unrolled_tri_scan
-                       if unroll and n_tri <= UNROLL_TRIANGLES
-                       else _smem_tri_scan)(tri_ref, n_tri)
-    t_b, pos, normal, rgb, mat, prim_idf = _nearest_hit_primary(
-        tri_scan, sph_ref, n_tri, n_sph, cam, d, gather_scan)
+    t_b, pos, normal, rgb, mat, prim_id = _nearest_hit_primary(
+        tri_ref, sph_ref, n_tri, n_sph, cam, d, ar)
     hit = t_b < _BIG
     # CPU-ref shades ANY hit triangle (no material logic, skeleton.cpp:268)
     prim_diffuse = hit if cfg.cpu_ref else hit & (mat > 0)
-    if with_residuals:
-        pid_ref[...] = prim_idf.astype(jnp.int32)
+    if residuals:
+        pid_ref[...] = prim_id
 
-    # --- specular bounce loop (wavefront; tile-level early exit) ---
-    shape = (A, TILE_H, TILE_W)
+    # --- specular bounce loop (block-level early exit) ---
+    zero = jnp.zeros(shape)
     if cfg.bounces > 0:
         def cond(s):
-            # active mask carried as f32 0/1 — Mosaic cannot carry i1
-            # vectors through scf.while
+            # the active mask rides as f32 0/1: max over it is the block's
+            # "any ray still bouncing" (there is no reduce_or lowering)
             return (s[0] < cfg.bounces) & (jnp.max(s[1]) > 0)
 
         def body(s):
@@ -757,40 +585,39 @@ def _render_kernel(tri_ref, sph_ref, cam_ref, off_ref, *refs,
             in_air = medium == _F(cfg.ior_air)
             n1 = jnp.where(in_air, _F(cfg.ior_air), _F(cfg.ior_glass))
             n2 = jnp.where(in_air, _F(cfg.ior_glass), _F(cfg.ior_air))
-            nr = n1 / n2
+            nr = ar.div(n1, n2)
             k = _F(1.0) - nr * nr * (_F(1.0) - c1a * c1a)
             tir = k < 0
-            c2 = jnp.sqrt(jnp.where(tir, _F(1.0), k))
+            c2 = ar.sqrt(jnp.where(tir, _F(1.0), k))
             refr = _add(_scale(nr, dcur),
                         _scale(nr * c1a - c2, _scale(_F(-1.0), nflip)))
             is_mirror = matc == 0
             if cfg.quirk_nan_tir:
-                dead = tir & ~is_mirror
+                alive = active & ~(tir & ~is_mirror)
                 use_refl = is_mirror
             else:
-                dead = jnp.zeros_like(tir)
+                alive = active
                 use_refl = is_mirror | tir
             ndir = _where3(use_refl, refl, refr)
             nmed = jnp.where(use_refl, _F(cfg.ior_air), n2)
             nstart = _add((px, py, pz), _scale(_F(cfg.bias), ndir))
-            alive = active & ~dead
-            nlen = jnp.sqrt(jnp.maximum(_dot(ndir, ndir), _F(1e-30)))
-            ndir = (ndir[0] / nlen, ndir[1] / nlen, ndir[2] / nlen)
+            nlen = ar.sqrt(jnp.maximum(_dot(ndir, ndir), _F(1e-30)))
+            ndir = (ar.div(ndir[0], nlen), ar.div(ndir[1], nlen),
+                    ar.div(ndir[2], nlen))
             if cfg.fresnel:
-                r0f = jnp.square((n1 - n2) / (n1 + n2))
+                r0f = jnp.square(ar.div(n1 - n2, n1 + n2))
                 refl_w = r0f + (1 - r0f) * (1 - c1a) ** 5
                 w_step = jnp.where(use_refl, _F(1.0), _F(1.0) - refl_w)
                 weight = jnp.where(alive, weight * w_step, weight)
 
-            t_n, pos_n, nrm_n, rgb_n, mat_n, idf_n = _nearest_hit(
-                tri_scan, sph_ref, n_tri, n_sph, nstart, ndir)
+            t_n, pos_n, nrm_n, rgb_n, mat_n, id_n = _nearest_hit(
+                tri_ref, sph_ref, n_tri, n_sph, nstart, ndir, ar)
             hit_n = t_n < _BIG
             diffuse = alive & hit_n & (mat_n > 0)
             cont = alive & hit_n & (mat_n <= 0)
-            if with_residuals:
-                bid_ref[b_i] = jnp.where(alive, idf_n,
-                                         _F(-1.0)).astype(jnp.int32)
-            return (b_i + 1, jnp.where(cont, _F(1.0), _F(0.0)),
+            if residuals:
+                bid_ref[b_i] = jnp.where(alive, id_n, np.int32(-1))
+            return (b_i + 1, cont.astype(_F),
                     jnp.where(cont, ndir[0], dxc),
                     jnp.where(cont, ndir[1], dyc),
                     jnp.where(cont, ndir[2], dzc),
@@ -803,7 +630,7 @@ def _render_kernel(tri_ref, sph_ref, cam_ref, off_ref, *refs,
                     jnp.where(cont, mat_n, matc),
                     jnp.where(cont, nmed, medium),
                     weight,
-                    jnp.maximum(tv_f, jnp.where(diffuse, _F(1.0), _F(0.0))),
+                    jnp.maximum(tv_f, diffuse.astype(_F)),
                     jnp.where(diffuse, pos_n[0], tpx),
                     jnp.where(diffuse, pos_n[1], tpy),
                     jnp.where(diffuse, pos_n[2], tpz),
@@ -814,294 +641,168 @@ def _render_kernel(tri_ref, sph_ref, cam_ref, off_ref, *refs,
                     jnp.where(diffuse, rgb_n[1], trg),
                     jnp.where(diffuse, rgb_n[2], trb))
 
-        zero = jnp.zeros(shape)
-        if with_residuals:
+        if residuals:
             # steps skipped by the early exit must read as "inactive"
-            bid_ref[...] = jnp.full((cfg.bounces,) + shape, -1, jnp.int32)
-        init = (jnp.int32(0),
-                jnp.where(hit & (mat <= 0), _F(1.0), _F(0.0)),
+            for step in range(cfg.bounces):
+                bid_ref[step] = jnp.full(shape, -1, jnp.int32)
+        init = (np.int32(0), (hit & (mat <= 0)).astype(_F),
                 d[0], d[1], d[2], pos[0], pos[1], pos[2],
                 normal[0], normal[1], normal[2], mat,
-                jnp.full(shape, _F(cfg.ior_air)),
-                jnp.ones(shape),
-                zero,
+                jnp.full(shape, _F(cfg.ior_air)), jnp.ones(shape), zero,
                 zero, zero, zero, zero, zero, zero, zero, zero, zero)
         out = jax.lax.while_loop(cond, body, init)
-        (_, _, _, _, _, _, _, _, _, _, _, _, _, weight, term_valid_f,
-         tpx, tpy, tpz, tnx, tny, tnz, trr, trg, trb) = out
-        term_valid = term_valid_f > 0
-        term_pos = (tpx, tpy, tpz)
-        term_nrm = (tnx, tny, tnz)
-        term_rgb = (trr, trg, trb)
+        weight, term_valid = out[13], out[14] > 0
+        term_pos, term_nrm, term_rgb = out[15:18], out[18:21], out[21:24]
     else:
         weight = jnp.ones(shape)
         term_valid = jnp.zeros(shape, jnp.bool_)
-        term_pos = term_nrm = term_rgb = (jnp.zeros(shape),) * 3
+        term_pos = term_nrm = term_rgb = (zero, zero, zero)
 
     # --- unified shading point + one soft-shadow pass ---
     sp_pos = _where3(prim_diffuse, pos, term_pos)
     sp_nrm = _where3(prim_diffuse, normal, term_nrm)
-
-    sdir = _sub(tuple(jnp.broadcast_to(jnp.reshape(c, (1, 1, 1)), shape)
-                      for c in light), sp_pos)
+    sdir = _sub(light, sp_pos)
     # CPU-ref shadow bias is the CPU path's relative 1e-3 (skeleton.cpp:229)
     sbias = cfg.cpu_ref_bias if cfg.cpu_ref else cfg.bias
     sstart = _add(sp_pos, _scale(_F(sbias), sdir))
     radius_sq = _dot(sdir, sdir)
     rs_safe = jnp.where(radius_sq == 0, _F(1.0), radius_sq)
-    lam_base = jnp.maximum(_dot(sdir, sp_nrm), 0.0) / (_PI4 * rs_safe)
+    lam_base = ar.div(jnp.maximum(_dot(sdir, sp_nrm), 0.0), _PI4 * rs_safe)
     lam_base = jnp.where(radius_sq == 0, _F(0.0), lam_base)
 
     gf = _u32_to_f32(gid)
-    state = _xorshift3((gid,
-                        _f32_to_u32(gf * _F(91.0)),
+    state = _xorshift3((gid, _f32_to_u32(gf * _F(91.0)),
                         _f32_to_u32(gf * _F(19.0))))
-    lit_count = _lit_count(tri_scan, sph_ref, n_sph, sstart, sdir,
-                           state, radius_sq, cfg, shd_ref=shd_ref,
-                           n_quads=n_quads, n_shd=n_shd, shd_scan=shd_scan,
-                           unroll=unroll)
-    if with_residuals:
-        lit_ref[...] = lit_count
-    dl_scale = lit_count * lam_base / _F(cfg.shadow_samples)
-    dl = tuple(jnp.reshape(c, (1, 1, 1)) * dl_scale for c in light_rgb)
+    lit_count = _lit_count(tri_ref, sph_ref, shd_ref, n_tri, n_sph, n_quads,
+                           n_shd, sstart, sdir, state, radius_sq, cfg, ar)
+    if residuals:
+        lit_ref[...] = jnp.where(prim_diffuse | term_valid, lit_count,
+                                 _F(0.0))
+    dl_scale = ar.div(lit_count * lam_base, _F(cfg.shadow_samples))
 
-    # --- combine (kernels.cl:415-425) ---
-    color = tuple(
-        jnp.where(prim_diffuse,
-                  rgb[c] * (jnp.reshape(indirect[c], (1, 1, 1)) + dl[c]),
-                  0.0)
-        for c in range(3))
-    if cfg.bounces > 0:
-        color = tuple(
-            jnp.where(term_valid,
-                      _F(0.9) * (jnp.reshape(indirect[c], (1, 1, 1)) + dl[c])
-                      * term_rgb[c] * weight,
-                      color[c])
-            for c in range(3))
-
-    # --- AA average + outputs ---
-    inv_a = _F(1.0 / A)
-    final = tuple(jnp.sum(c, axis=0) * inv_a for c in color)
-    img_ref[0] = final[0]
-    img_ref[1] = final[1]
-    img_ref[2] = final[2]
-    u8 = tuple(_f32_to_u32(jnp.clip(_F(255.0) * c, 0.0, 255.0))
-               for c in final)
-    packed_ref[...] = ((jnp.uint32(255) << jnp.uint32(24))
-                       + (u8[0] << jnp.uint32(16))
-                       + (u8[1] << jnp.uint32(8)) + u8[2])
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "n_tri", "n_sph",
-                                             "hp", "wp", "rows", "interpret",
-                                             "with_residuals", "streamed",
-                                             "n_quads"))
-def _call_kernel(tri, sph, cam, off, cfg: RenderConfig, n_tri: int,
-                 n_sph: int, hp: int, wp: int, rows: int,
-                 interpret: bool = False, with_residuals: bool = False,
-                 streamed: bool = False, shd=None, n_quads: int = 0):
-    """Launch over a (hp, wp) padded canvas; the kernel's math uses the
-    *logical* cfg dimensions (ray centering, pixel-id RNG seeds), so padded
-    lanes render harmless off-screen content that the caller crops."""
-    grid = (hp // TILE_H, wp // TILE_W)
-    A = cfg.aa_rays
-    n_shd = 0 if shd is None else shd.shape[0]
-    kernel = functools.partial(_render_kernel, cfg=cfg, n_tri=n_tri,
-                               n_sph=n_sph, n_rows=tri.shape[0],
-                               streamed=streamed,
-                               with_residuals=with_residuals,
-                               n_quads=n_quads, n_shd=n_shd,
-                               unroll=not interpret)
-    out_specs = [
-        pl.BlockSpec((3, TILE_H, TILE_W), lambda i, j: (0, i, j),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((TILE_H, TILE_W), lambda i, j: (i, j),
-                     memory_space=pltpu.VMEM),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((3, hp, wp), jnp.float32),
-        jax.ShapeDtypeStruct((hp, wp), jnp.uint32),
-    ]
-    if with_residuals:
-        out_specs += [
-            pl.BlockSpec((A, TILE_H, TILE_W), lambda i, j: (0, i, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((A, TILE_H, TILE_W), lambda i, j: (0, i, j),
-                         memory_space=pltpu.VMEM),
-        ]
-        out_shape += [
-            jax.ShapeDtypeStruct((A, hp, wp), jnp.int32),
-            jax.ShapeDtypeStruct((A, hp, wp), jnp.float32),
-        ]
+    # --- combine (kernels.cl:415-425), AA average over the real AA rays ---
+    keep = aa < A
+    for c, out_ref in enumerate((r_ref, g_ref, b_ref)):
+        dl = light_rgb[c] * dl_scale
+        color = jnp.where(prim_diffuse, rgb[c] * (indirect[c] + dl), 0.0)
         if cfg.bounces > 0:
-            out_specs.append(
-                pl.BlockSpec((cfg.bounces, A, TILE_H, TILE_W),
-                             lambda i, j: (0, 0, i, j),
-                             memory_space=pltpu.VMEM))
-            out_shape.append(
-                jax.ShapeDtypeStruct((cfg.bounces, A, hp, wp), jnp.int32))
-    in_specs = [
-        # streamed: the triangle table stays in HBM (ANY would let the
-        # compiler park it in VMEM, whose (1,128) lane tiling cannot be
-        # row-sliced at 19 columns); DMA'd into SMEM scratch in blocks
-        pl.BlockSpec(memory_space=pltpu.HBM) if streamed
-        else pl.BlockSpec(memory_space=pltpu.SMEM),
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-    ]
-    inputs = [tri, sph, cam, off]
-    if n_shd:
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.HBM) if streamed
-                        else pl.BlockSpec(memory_space=pltpu.SMEM))
-        inputs.append(shd)
-    scratch = []
-    if streamed:
-        scratch = [pltpu.SMEM((2, STREAM_BLK, STREAM_COLS), jnp.float32),
-                   pltpu.SemaphoreType.DMA((2,))]
-        if n_shd:   # second double buffer for the streamed shd table
-            scratch += [pltpu.SMEM((2, STREAM_BLK, STREAM_COLS),
-                                   jnp.float32),
-                        pltpu.SemaphoreType.DMA((2,))]
+            color = jnp.where(
+                term_valid,
+                _F(0.9) * (indirect[c] + dl) * term_rgb[c] * weight, color)
+        if ap != A:
+            color = jnp.where(keep, color, 0.0)
+        out_ref[...] = jnp.sum(color, axis=0) * _F(1.0 / A)
+
+
+def _whole(ndim: int):
+    """Index map of a table every program reads whole."""
+    return lambda i: (0,) * ndim
+
+
+def _launch(scene: Scene, cfg: RenderConfig, row0, rows: int, quads,
+            interpret: bool, residuals: bool):
+    """One pallas_call over a row band [row0, row0+rows) of the logical
+    image, its width padded up to the block width; padded lanes render
+    harmless off-screen content that is cropped. The kernel's math uses the
+    logical cfg dimensions (ray centering, pixel-id RNG seeds)."""
+    if not interpret and jax.default_backend() != "gpu":
+        raise ValueError(
+            "the fused forward kernel compiles only for a GPU (platform "
+            f"{jax.default_backend()!r}); pass interpret=True to run it in "
+            "the Pallas interpreter")
+    A = cfg.aa_rays
+    ap = _pow2(A)
+    tw = max(1, RAYS_PER_BLOCK // ap)
+    n_col = -(-cfg.width // tw)
+    wp = n_col * tw
+    n_pix = rows * wp
+    off = (jnp.zeros((1,), jnp.int32) if row0 is None
+           else jnp.asarray(row0, jnp.int32).reshape(1))
+    tri, sph, cam = pack_scene(scene)
+    n_tri = scene.tri_v0.shape[0]
+    # CPU-ref ignores spheres entirely (the vestigial path predates them)
+    n_sph = 0 if cfg.cpu_ref else scene.sph_center.shape[0]
+    inputs = [_pad_pow2(tri, TRI_COLS), _pad_pow2(sph, SPH_COLS),
+              jnp.pad(cam, (0, CAM_LEN - cam.shape[0])), off]
+    n_quads = n_shd = 0
+    if quads is not None and not cfg.cpu_ref:
+        shd = pack_shadow(scene, quads)
+        n_quads, n_shd = len(quads[0]), shd.shape[0]
+        inputs.append(_pad_pow2(shd, SHD_COLS))
+    in_specs = [pl.BlockSpec(x.shape, _whole(x.ndim)) for x in inputs]
+
+    img_spec = pl.BlockSpec((tw,), lambda i: (i,))
+    out_specs = [img_spec] * 3
+    out_shape = [jax.ShapeDtypeStruct((n_pix,), jnp.float32)] * 3
+    if residuals:
+        ray_spec = pl.BlockSpec((ap, tw), lambda i: (0, i))
+        out_specs += [ray_spec, ray_spec]
+        out_shape += [jax.ShapeDtypeStruct((ap, n_pix), jnp.int32),
+                      jax.ShapeDtypeStruct((ap, n_pix), jnp.float32)]
+        if cfg.bounces > 0:
+            out_specs.append(pl.BlockSpec((cfg.bounces, ap, tw),
+                                          lambda i: (0, 0, i)))
+            out_shape.append(jax.ShapeDtypeStruct((cfg.bounces, ap, n_pix),
+                                                  jnp.int32))
+    kernel = functools.partial(
+        _render_kernel, cfg=cfg, n_tri=n_tri, n_sph=n_sph, ap=ap, tw=tw,
+        n_col=n_col, n_quads=n_quads, n_shd=n_shd, residuals=residuals,
+        interpret=interpret)
     outs = pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(rows * n_col,),
         in_specs=in_specs,
         out_specs=out_specs,
         out_shape=out_shape,
-        scratch_shapes=scratch,
         interpret=interpret,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
+        name="render_fwd",
     )(*inputs)
-    h, w = rows, cfg.width
-    img, packed = outs[0][:, :h, :w], outs[1][:h, :w]
-    if not with_residuals:
-        return img, packed
-    pid = outs[2][:, :h, :w]
-    lit = outs[3][:, :h, :w]
-    bid = (outs[4][:, :, :h, :w] if cfg.bounces > 0
-           else jnp.zeros((0, A, h, w), jnp.int32))
-    return img, packed, pid, lit, bid
+
+    def crop(x):
+        return x.reshape(x.shape[:-1] + (rows, wp))[..., :cfg.width]
+
+    img = jnp.stack([crop(c) for c in outs[:3]], axis=-1)
+    if not residuals:
+        return img
+    from ..ops.replay import Residuals
+    pid, lit = crop(outs[3])[:A], crop(outs[4])[:A]
+    bid = (crop(outs[5])[:, :A] if cfg.bounces > 0
+           else jnp.zeros((0, A, rows, cfg.width), jnp.int32))
+    return img, Residuals(prim_id=pid, lit_cnt=lit, bounce_id=bid)
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
+@functools.partial(jax.jit, static_argnames=("cfg", "rows", "quads",
+                                             "interpret"))
+def render_fused(scene: Scene, cfg: RenderConfig, row0=None,
+                 rows: int | None = None, quads=None,
+                 interpret: bool = False) -> jax.Array:
+    """Forward render through the fused kernel: image [rows, W, 3] float32.
 
-
-def default_interpret() -> bool:
-    """Pallas interpret mode everywhere but real TPU hardware, so the same
-    production kernels execute on the CPU test backend (including the
-    8-virtual-device shard_map meshes) without callers having to plumb a
-    flag."""
-    return jax.default_backend() != "tpu"
-
-
-def _pack_quads(scene: Scene, quads, streamed: bool):
-    """(shd table, n_quads) for a static pairing, or (None, 0). The SMEM
-    kernel keeps the table whole in SMEM; the streamed kernel packs it
-    SHD_PACK-per-row and DMA-streams it like the triangle table (the mixed
-    quad/tri accept test selects per item on gi < n_quads)."""
-    if quads is None:
-        return None, 0
-    shd = pack_shadow(scene, quads)
-    if streamed:
-        shd = pack_streamed(shd, SHD_COLS, SHD_PACK)
-    return shd, len(quads[0])
-
-
-def _shadow_tables(scene: Scene, cfg: RenderConfig, quads, streamed: bool):
-    """Occlusion-geometry tables for one launch (SMEM quad/tri table, or
-    its streamed packing). An MXU matmul formulation of this scan was
-    built and measured in round 4 and REMOVED as a negative result: the
-    8-feature contraction runs the MXU at K=8/128 utilization, and the
-    accept tests' exact thresholds force Precision.HIGHEST (default-
-    precision bf16 multiplicands flipped 60-84% of pixels on hardware),
-    making it 1.75x SLOWER than this VPU scan (58.9 vs 33.6 ms at 8k
-    triangles) — see BASELINE.md."""
-    return _pack_quads(scene, quads, streamed)
-
-
-def render_fused_raw(scene: Scene, cfg: RenderConfig,
-                     interpret: bool | None = None, row0=None,
-                     rows: int | None = None, quads=None):
-    """Forward render via the fused Pallas kernel.
-
-    Returns (image [rows, W, 3] float32, packed [rows, W] uint32). Any image
-    size: the launch grid is padded up to the (8, 128) tile and cropped.
-    row0/rows render only a row band of the logical cfg-sized image (ray
-    centering and pixel-id RNG stay global) — the dp-sharded launch path.
-    quads: optional static pairing from ops.quads.detect_shadow_quads —
-    quad-merged occlusion scan. Not differentiable directly; render.py
-    wires the path-replay custom_vjp.
+    Any image size: the launch is padded up to the block width and
+    cropped. row0/rows render only a row band of the logical cfg-sized
+    image (ray centering and pixel-id RNG stay global), the dp-sharded
+    launch path. quads: optional static pairing from
+    ops.quads.detect_shadow_quads, the quad-merged occlusion scan. Not
+    differentiable directly; render.py wires the path-replay custom_vjp.
+    interpret=True runs the kernel in the Pallas interpreter (tests on the
+    CPU); otherwise it compiles for the GPU and raises anywhere else.
 
     cfg.cpu_ref runs the same fused kernel in CPU-ref semantics
     (skeleton.cpp:184-279): unnormalized single rays, triangles only, one
     hard shadow ray with relative bias, no material logic."""
-    if interpret is None:
-        interpret = default_interpret()
     rows = cfg.height if rows is None else rows
-    off = (jnp.zeros((1,), jnp.int32) if row0 is None
-           else jnp.asarray(row0, jnp.int32).reshape(1))
-    streamed = _use_streamed(scene)
-    tri, sph, cam = pack_scene(scene)
-    if streamed:  # STREAM_PACK triangles per lane-tile-aligned HBM row
-        tri = pack_streamed(tri, 19, STREAM_PACK)
-    shd, n_quads = _shadow_tables(scene, cfg, quads, streamed)
-    # CPU-ref ignores spheres entirely (the vestigial path predates them)
-    n_sph = 0 if cfg.cpu_ref else scene.sph_center.shape[0]
-    img, packed = _call_kernel(
-        tri, sph, cam, off, cfg, scene.tri_v0.shape[0], n_sph,
-        _round_up(rows, TILE_H), _round_up(cfg.width, TILE_W), rows,
-        interpret, streamed=streamed, shd=shd, n_quads=n_quads)
-    return jnp.transpose(img, (1, 2, 0)), packed
+    return _launch(scene, cfg, row0, rows, quads, interpret, False)
 
 
-# Whole-table SMEM staging is the fast path for small scenes (the Cornell
-# workloads); SMEM capacity caps it. Bigger scenes switch to the streamed
-# kernel, which double-buffers STREAM_BLK-row blocks of the HBM-resident
-# table through SMEM scratch — no scene-size cap, same fused pipeline.
-#
-# The cutover value is set from the measured r5 crossover curve
-# (docs/crossover_r05.json, `python bench.py --crossover`, 128² aa4 s3 b2):
-# smem/streamed fwd ms = 0.11/1.04 @26 tris, 0.60/1.03 @128, 1.20/1.41
-# @256, 2.35/2.36 @512, 3.59/3.39 @768 (streamed WINS), and the SMEM
-# kernel no longer compiles at 1024 (Mosaic scalar-memory limit, incl.
-# the shadow-quad table sharing SMEM). 512 is both the last size where
-# SMEM is at least as fast and the last power of two with compile
-# headroom — the measured crossover, not an anecdote.
-MAX_SMEM_TRIANGLES = 512
-
-
-def _use_streamed(scene: Scene) -> bool:
-    # RAYTPU_FORCE_KERNEL=smem|streamed pins the choice (crossover bench)
-    force = os.environ.get("RAYTPU_FORCE_KERNEL")
-    if force == "smem":
-        return False
-    if force == "streamed":
-        return True
-    return scene.tri_v0.shape[0] > MAX_SMEM_TRIANGLES
-
-
-def render_fused_res(scene: Scene, cfg: RenderConfig,
-                     interpret: bool | None = None, row0=None,
-                     rows: int | None = None, quads=None):
-    """Forward render that also returns the decision residuals consumed by
-    the path-replay backward: (image, packed, Residuals)."""
-    from ..ops.replay import Residuals
-    if interpret is None:
-        interpret = default_interpret()
+@functools.partial(jax.jit, static_argnames=("cfg", "rows", "quads",
+                                             "interpret"))
+def render_fused_res(scene: Scene, cfg: RenderConfig, row0=None,
+                     rows: int | None = None, quads=None,
+                     interpret: bool = False):
+    """``render_fused`` that also returns the decision residuals consumed
+    by the path-replay backward: (image, Residuals)."""
     rows = cfg.height if rows is None else rows
-    off = (jnp.zeros((1,), jnp.int32) if row0 is None
-           else jnp.asarray(row0, jnp.int32).reshape(1))
-    streamed = _use_streamed(scene)
-    tri, sph, cam = pack_scene(scene)
-    if streamed:  # STREAM_PACK triangles per lane-tile-aligned HBM row
-        tri = pack_streamed(tri, 19, STREAM_PACK)
-    shd, n_quads = _shadow_tables(scene, cfg, quads, streamed)
-    n_sph = 0 if cfg.cpu_ref else scene.sph_center.shape[0]
-    img, packed, pid, lit, bid = _call_kernel(
-        tri, sph, cam, off, cfg, scene.tri_v0.shape[0], n_sph,
-        _round_up(rows, TILE_H), _round_up(cfg.width, TILE_W), rows,
-        interpret, with_residuals=True, streamed=streamed,
-        shd=shd, n_quads=n_quads)
-    return (jnp.transpose(img, (1, 2, 0)), packed,
-            Residuals(prim_id=pid, lit_cnt=lit, bounce_id=bid))
+    return _launch(scene, cfg, row0, rows, quads, interpret, True)

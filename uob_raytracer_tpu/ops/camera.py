@@ -57,8 +57,8 @@ def gen_primary_rays(cfg: RenderConfig, yaw, pitch):
         jnp.full((H, W, a), focal),
     ], axis=-1)
     R = rotation_matrix(yaw, pitch)
-    # Rotate with explicit multiply-adds on the VPU — NOT einsum/matmul,
-    # which XLA would route through the MXU with bf16 inputs by default,
+    # Rotate with explicit multiply-adds — NOT einsum/matmul, which XLA
+    # may run on reduced-precision matrix units (TF32 on the GPU),
     # losing the f32 precision the intersection tests depend on.
     dirs = jnp.stack([
         jnp.sum(R[0] * dirs, axis=-1),

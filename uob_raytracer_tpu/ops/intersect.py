@@ -5,8 +5,7 @@ Semantics follow ``single_ray_intersections`` / ``batch_ray_intersections``
 triangles with strict nearest-t (ties keep the lowest index), then spheres
 via the catastrophic-cancellation-stable quadratic (q/a, c/q root pairing,
 ``kernels.cl:140-143``) with strict < against the triangle best. Brute force
-over the triangle axis — no BVH — which is exactly what maps well onto the
-TPU's vector unit: every lane does identical work.
+over the triangle axis — no BVH — so every lane does identical work.
 
 Tensor-parallel mode: when ``tri_axis`` names a mesh axis (inside
 ``shard_map``), each shard holds a slice of the triangle arrays plus its
@@ -73,7 +72,7 @@ class Hit(NamedTuple):
     rgb: jnp.ndarray      # [N,3]
     mat: jnp.ndarray      # [N]
     t: jnp.ndarray        # [N]
-    obj_id: jnp.ndarray   # [N] int32: triangle index, -2 sphere, -1 miss
+    obj_id: jnp.ndarray   # [N] int32: triangle i, T + sphere s, -1 miss
 
 
 def prepare_scene(scene: Scene) -> DeviceScene:
@@ -90,6 +89,14 @@ def prepare_scene(scene: Scene) -> DeviceScene:
         light_pos=scene.light_pos, light_color=scene.light_color,
         indirect=scene.indirect_light, camera_pos=scene.camera_pos,
     )
+
+
+def _materialize(x):
+    """Keep the [rays, triangles] tests out of the reduction's fusion. Fused
+    into the reduce over an 8,192-triangle scene, XLA's GPU compile of the
+    jnp forward did not finish in 20 minutes; materialized, it compiles in
+    about 6 s on an H100."""
+    return jax.lax.optimization_barrier(x)
 
 
 def _tri_tuv(ds: DeviceScene, start, d):
@@ -152,7 +159,7 @@ def _best_triangle(ds: DeviceScene, start, d) -> _TriBest:
     valid = ((t >= 0) & (u >= 0) & (v >= 0) & ((u + v) <= 1)) & ~degenerate
     t_m = jnp.where(valid, t, _INF)
     t_m = jnp.where(jnp.isnan(t_m), _INF, t_m)
-    li = jnp.argmin(t_m, axis=1)
+    li = jnp.argmin(_materialize(t_m), axis=1)
     ar = jnp.arange(n_rays)
     tb = t_m[ar, li]
     hit = jnp.isfinite(tb)
@@ -196,34 +203,14 @@ def _combine_tri_best(best: _TriBest, tri_axis: str) -> _TriBest:
     )
 
 
-def _best_triangle_pallas(ds: DeviceScene, start, d) -> _TriBest:
-    """Per-shard nearest triangle hit through the streamed Pallas partial
-    kernel (``kernels/partial.py``) — the production tp path. Same combine
-    contract as ``_best_triangle``; differentiable via the kernel's
-    path-replay custom_vjp (frozen visibility, like the jnp argmin)."""
-    from ..kernels.partial import nearest_tris_pallas
-    t, pos, nrm, rgb, mat, idx = nearest_tris_pallas(
-        ds.v0, ds.e1, ds.e2, ds.n, ds.rgb, ds.mat, start, d)
-    hit = jnp.isfinite(t)
-    return _TriBest(
-        t=t,
-        idx=jnp.where(hit, idx + ds.tri_offset, _IMAX),
-        pos=pos, normal=nrm, rgb=rgb,
-        mat=jnp.where(hit, mat, jnp.float32(1.0)),
-    )
-
-
-def intersect(ds: DeviceScene, start, d, tri_axis: str | None = None,
-              tri_pass: str = "jnp") -> Hit:
-    """Nearest hit for rays (start [N,3], d [N,3]).
-
-    tri_pass='pallas' runs the triangle scan through the streamed partial
-    kernel (differentiable; pair with tri_axis for tp sharding)."""
-    if tri_pass == "pallas":
-        best = _best_triangle_pallas(ds, start, d)
-    else:
-        best = _best_triangle(ds, start, d)
+def intersect(ds: DeviceScene, start, d, tri_axis: str | None = None) -> Hit:
+    """Nearest hit for rays (start [N,3], d [N,3]). ``obj_id`` uses the
+    fused kernel's encoding: -1 miss, i for (global) triangle i, T + s for
+    sphere s, with T the global triangle count."""
+    best = _best_triangle(ds, start, d)
+    n_tri = ds.v0.shape[0]
     if tri_axis is not None:
+        n_tri *= jax.lax.axis_size(tri_axis)
         best = _combine_tri_best(best, tri_axis)
     tri_t = best.t
 
@@ -246,7 +233,8 @@ def intersect(ds: DeviceScene, start, d, tri_axis: str | None = None,
         rgb = jnp.where(sphere_wins[:, None], ds.sph_rgb[sph_idx], best.rgb)
         mat = jnp.where(sphere_wins, ds.sph_mat[sph_idx], best.mat)
         t_best = jnp.where(sphere_wins, sph_t, tri_t)
-        obj = jnp.where(sphere_wins, jnp.int32(-2), best.idx)
+        obj = jnp.where(sphere_wins, sph_idx.astype(jnp.int32) + n_tri,
+                        best.idx)
     else:
         pos, normal = best.pos, best.normal
         rgb, mat = best.rgb, best.mat
@@ -259,24 +247,17 @@ def intersect(ds: DeviceScene, start, d, tri_axis: str | None = None,
 
 
 def in_shadow(ds: DeviceScene, start, d, radius_sq,
-              tri_axis: str | None = None,
-              tri_pass: str = "jnp") -> jnp.ndarray:
+              tri_axis: str | None = None) -> jnp.ndarray:
     """Occlusion toward the light (``kernels.cl:243-311``): glass (mat == -1)
     casts no shadow; an occluder counts at t >= 0 with |t*d|^2 < radius_sq.
-    On TPU there is no early exit — the masked any() over all objects is one
-    fused reduction, which is faster than divergent control flow anyway.
-    tri_pass='pallas': streamed partial kernel for the triangle scan."""
-    if tri_pass == "pallas":
-        from ..kernels.partial import occluded_tris_pallas
-        occluded = occluded_tris_pallas(ds.v0, ds.e1, ds.e2, ds.mat,
-                                        start, d, radius_sq)
-    else:
-        t, u, v, degenerate = _tri_tuv(ds, start, d)
-        dist = t * t * dot3(d, d)[:, None]
-        occ = ((t >= 0) & (dist < radius_sq[:, None])
-               & (u >= 0) & (v >= 0) & ((u + v) <= 1) & ~degenerate
-               & (ds.mat[None] != jnp.float32(-1.0)))
-        occluded = jnp.any(occ, axis=1)
+    No early exit: the masked any() over all objects is one fused
+    reduction over the [rays, triangles] tests."""
+    t, u, v, degenerate = _tri_tuv(ds, start, d)
+    dist = t * t * dot3(d, d)[:, None]
+    occ = ((t >= 0) & (dist < radius_sq[:, None])
+           & (u >= 0) & (v >= 0) & ((u + v) <= 1) & ~degenerate
+           & (ds.mat[None] != jnp.float32(-1.0)))
+    occluded = jnp.any(_materialize(occ), axis=1)
     if ds.num_spheres:
         xmin, xmax, no_sol = _sphere_roots(ds, start, d)
         dd = dot3(d, d)[:, None]

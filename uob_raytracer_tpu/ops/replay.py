@@ -1,8 +1,9 @@
 """Path-replay reconstruction: the hand-derived backward pass.
 
-The fused forward kernel records each ray's *discrete decisions* — primary
-hit object id, per-bounce hit object ids, and soft-shadow lit counts — as
-cheap integer residuals. This module rebuilds the pixel radiance as a lean
+The forward (the fused kernel, or the plain jnp forward that records the
+same decisions) keeps each ray's *discrete decisions* — primary hit object
+id, per-bounce hit object ids, and soft-shadow lit counts — as cheap
+residuals. This module rebuilds the pixel radiance as a lean
 differentiable function of the scene parameters with those decisions frozen:
 every ray gathers only the one object it actually hit (O(1) per bounce, no
 [rays, triangles] broadcast) and the occlusion counts enter via
@@ -12,8 +13,8 @@ Under the framework's gradient semantics (visibility is piecewise-constant;
 the pixel gradient is the interior/shading gradient — SURVEY.md §7) the
 gradient of this replay equals the gradient of the full pipeline, at a tiny
 fraction of the cost: this is the same decision/recompute factorization used
-by replay-style differentiable renderers, expressed as gathers the TPU
-likes.
+by replay-style differentiable renderers, expressed as row gathers and
+elementwise math that XLA fuses.
 
 Object id encoding: 0..T-1 triangle, T+s sphere s, -1 miss/inactive.
 Ray layout follows the kernel: (A, H, W) flattened A-major.
@@ -69,12 +70,11 @@ _ONEHOT_MAX_ROWS = 2048
 
 
 def _gather_rows(table, ids):
-    """One-hot MXU gather: rows = onehot(ids) @ table. On TPU a row gather
-    of a tiny table lowers to a slow dynamic-slice loop; the one-hot matmul
-    (exact: each row has a single 1.0) is an order of magnitude faster and
-    its transpose — the scatter-add of the backward pass — is a matmul too.
-    Large tables (streamed-kernel scenes) use jnp.take: the [N, rows]
-    one-hot no longer fits, and XLA's real gather/scatter wins there."""
+    """Row gather as a one-hot product: rows = onehot(ids) @ table (exact:
+    each row has a single 1.0); its transpose, the scatter-add of the
+    backward pass, is a product too. Precision.HIGHEST keeps the product in
+    full f32: a TF32 product would round the gathered vertices. Large
+    tables use jnp.take: the [N, rows] one-hot no longer fits."""
     R = table.shape[0]
     idx = jnp.where(ids < 0, R - 1, ids)
     if R > _ONEHOT_MAX_ROWS:

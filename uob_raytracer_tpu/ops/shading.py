@@ -25,13 +25,14 @@ _PI4 = np.float32(4.0 * 3.14159265358979323846)
 
 
 def direct_light(ds: DeviceScene, cfg: RenderConfig, pos, normal, gid,
-                 tri_axis: str | None = None, tri_pass: str = "jnp"):
+                 tri_axis: str | None = None, record: bool = False):
     """Soft-shadowed inverse-square Lambert (``kernels.cl:313-340``).
 
     Reference quirks kept verbatim: the per-sample jitter perturbs only the
     occlusion ray; the Lambert term uses the unperturbed *unnormalized*
     shadow direction in both the cosine and the 1/(4 pi r^2) falloff; the
-    RNG stream restarts from the pixel-id seed on every call."""
+    RNG stream restarts from the pixel-id seed on every call. With
+    ``record`` also returns the unoccluded-sample count per ray."""
     sdir = ds.light_pos[None] - pos
     start = pos + jnp.float32(cfg.bias) * sdir
     radius_sq = dot3(sdir, sdir)
@@ -41,18 +42,19 @@ def direct_light(ds: DeviceScene, cfg: RenderConfig, pos, normal, gid,
     lamb = jnp.where((radius_sq == 0)[:, None], 0.0, lamb)
 
     def sample(carry, _):
-        state, acc = carry
+        state, acc, cnt = carry
         state = xorshift(state)
         jitter = crush(state, cfg.light_spread)
-        lit = ~in_shadow(ds, start, sdir + jitter, radius_sq, tri_axis,
-                         tri_pass)
+        lit = ~in_shadow(ds, start, sdir + jitter, radius_sq, tri_axis)
         acc = acc + lit[:, None].astype(jnp.float32) * lamb
-        return (state, acc), None
+        return (state, acc, cnt + lit.astype(jnp.float32)), None
 
     state0 = shadow_seed(gid)
-    (_, total), _ = jax.lax.scan(
-        sample, (state0, jnp.zeros_like(pos)), None, length=cfg.shadow_samples)
-    return total / jnp.float32(cfg.shadow_samples)
+    (_, total, cnt), _ = jax.lax.scan(
+        sample, (state0, jnp.zeros_like(pos), jnp.zeros_like(radius_sq)),
+        None, length=cfg.shadow_samples)
+    dl = total / jnp.float32(cfg.shadow_samples)
+    return (dl, cnt) if record else dl
 
 
 def _reflect_dir(d, n):
@@ -90,7 +92,7 @@ def _schlick(c1, n1, n2):
 
 
 def trace_specular(ds: DeviceScene, cfg: RenderConfig, primary: Hit, d,
-                   tri_axis: str | None = None, tri_pass: str = "jnp"):
+                   tri_axis: str | None = None):
     """Wavefront specular bounce loop (``kernels.cl:342-365``) — geometry
     only. A ray stays active while its last hit is specular (mat <= 0); the
     loop records the *terminal* diffuse hit (position, normal, color,
@@ -100,7 +102,10 @@ def trace_specular(ds: DeviceScene, cfg: RenderConfig, primary: Hit, d,
     (black, as in the reference). With ``cfg.quirk_nan_tir`` a
     total-internal-reflection event kills the ray (the reference's NaN
     direction renders black); otherwise TIR reflects. With ``cfg.fresnel``
-    refraction is attenuated by Schlick transmittance (extension)."""
+    refraction is attenuated by Schlick transmittance (extension). The
+    result also holds ``bounce_id`` [bounces, N]: the object each live ray
+    hit at each step, -1 once it is no longer alive (the residual the
+    path-replay backward keys on)."""
     n_rays = d.shape[0]
     state0 = dict(
         active=primary.hit & (primary.mat <= 0),
@@ -139,7 +144,7 @@ def trace_specular(ds: DeviceScene, cfg: RenderConfig, primary: Hit, d,
                                jnp.float32(1.0) - _schlick(c1a, n1v, n2v))
             weight = jnp.where(alive, weight * w_step, weight)
 
-        hit = intersect(ds, new_start, new_dir, tri_axis, tri_pass)
+        hit = intersect(ds, new_start, new_dir, tri_axis)
         diffuse = alive & hit.hit & (hit.mat > 0)
         keep_t = diffuse[:, None]
         cont = alive & hit.hit & (hit.mat <= 0)
@@ -157,27 +162,32 @@ def trace_specular(ds: DeviceScene, cfg: RenderConfig, primary: Hit, d,
             normal=jnp.where(keep, hit.normal, s["normal"]),
             mat=jnp.where(cont, hit.mat, s["mat"]),
             medium=jnp.where(cont, new_medium, s["medium"]),
-        ), n_active
+        ), (n_active, jnp.where(alive, hit.obj_id, jnp.int32(-1)))
 
-    final, n_active = jax.lax.scan(jax.checkpoint(bounce), state0, None,
-                                   length=cfg.bounces)
+    final, (n_active, bounce_id) = jax.lax.scan(
+        jax.checkpoint(bounce), state0, None, length=cfg.bounces)
     final["bounce_rays"] = jnp.sum(n_active)
+    final["bounce_id"] = bounce_id
     return final
 
 
 def shade(ds: DeviceScene, cfg: RenderConfig, start, d, gid,
-          tri_axis: str | None = None, tri_pass: str = "jnp"):
+          tri_axis: str | None = None, record: bool = False):
     """Full per-ray radiance (``kernels.cl:411-425``): nearest hit, bounce
     loop for specular rays, then ONE soft-shadow evaluation at the unified
     shading point (the primary hit for diffuse rays, the bounce-terminal
     hit for specular rays — both use the same pixel-seeded RNG stream, so
     the result is identical to shading inside the loop as the reference
-    does, at a tenth of the shadow-ray cost)."""
-    primary = intersect(ds, start, d, tri_axis, tri_pass)
+    does, at a tenth of the shadow-ray cost).
+
+    With ``record`` returns (color, prim_id, lit_cnt, bounce_id): the
+    discrete decisions the fused kernel records for the path-replay
+    backward, in its encoding (``ops/replay.Residuals``)."""
+    primary = intersect(ds, start, d, tri_axis)
     prim_diffuse = primary.hit & (primary.mat > 0)
 
     if cfg.bounces > 0:
-        term = trace_specular(ds, cfg, primary, d, tri_axis, tri_pass)
+        term = trace_specular(ds, cfg, primary, d, tri_axis)
         term_valid = term["term_valid"]
         sp_pos = jnp.where(prim_diffuse[:, None], primary.pos, term["term_pos"])
         sp_normal = jnp.where(prim_diffuse[:, None], primary.normal,
@@ -187,24 +197,33 @@ def shade(ds: DeviceScene, cfg: RenderConfig, start, d, gid,
         term_valid = jnp.zeros_like(prim_diffuse)
         sp_pos, sp_normal = primary.pos, primary.normal
 
-    dl = direct_light(ds, cfg, sp_pos, sp_normal, gid, tri_axis, tri_pass)
+    dl = direct_light(ds, cfg, sp_pos, sp_normal, gid, tri_axis, record)
+    if record:
+        dl, lit = dl
     color = jnp.where(prim_diffuse[:, None],
                       primary.rgb * (ds.indirect[None] + dl), 0.0)
     if term is not None:
         sec = (jnp.float32(0.9) * (ds.indirect[None] + dl) * term["term_rgb"]
                * term["weight"][:, None])
         color = jnp.where(term_valid[:, None], sec, color)
-    return color
+    if not record:
+        return color
+    bounce_id = (term["bounce_id"] if term is not None
+                 else jnp.zeros((0, d.shape[0]), jnp.int32))
+    lit = jnp.where(prim_diffuse | term_valid, lit, jnp.float32(0.0))
+    return color, primary.obj_id, lit, bounce_id
 
 
 # ---------------------------------------------------------------------------
 # CPU-reference semantics (the vestigial scalar renderer)
 # ---------------------------------------------------------------------------
 
-def shade_cpu_ref(ds: DeviceScene, cfg: RenderConfig, start, d):
+def shade_cpu_ref(ds: DeviceScene, cfg: RenderConfig, start, d,
+                  record: bool = False):
     """``skeleton.cpp:184-279`` semantics: triangles only, unnormalized rays,
     distances measured as |t*d|, one hard shadow ray with relative bias 1e-3,
-    no material logic (every triangle occludes)."""
+    no material logic (every triangle occludes). ``record`` as in
+    ``shade``."""
     t, u, v, degenerate = _tri_tuv(ds, start, d)
     valid = ((t >= 0) & (u >= 0) & (v >= 0) & ((u + v) <= 1)) & ~degenerate
     t_m = jnp.where(valid, t, jnp.float32(jnp.inf))
@@ -234,5 +253,9 @@ def shade_cpu_ref(ds: DeviceScene, cfg: RenderConfig, start, d):
     lamb = (ds.light_color[None] * jnp.maximum(dot3(r, normal), 0.0)[:, None]
             / (_PI4 * rad_safe * rad_safe)[:, None])
     dl = jnp.where(shadowed[:, None], 0.0, lamb)
-    color = rgb * (dl + ds.indirect[None])
-    return jnp.where(hit[:, None], color, 0.0)
+    color = jnp.where(hit[:, None], rgb * (dl + ds.indirect[None]), 0.0)
+    if not record:
+        return color
+    prim_id = jnp.where(hit, idx.astype(jnp.int32), jnp.int32(-1))
+    lit = jnp.where(hit & ~shadowed, jnp.float32(1.0), jnp.float32(0.0))
+    return color, prim_id, lit, jnp.zeros((0, d.shape[0]), jnp.int32)

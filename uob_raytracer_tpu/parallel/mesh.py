@@ -3,14 +3,17 @@
 The reference is single-device: its only parallelism is SPMD over pixels on
 one GPU (``Source/skeleton.cpp:170-172``, 1024x1024 NDRange in 128x4 groups),
 and its only "communication" is host<->device buffer traffic. Here scaling is
-expressed the TPU way — a ``jax.sharding.Mesh`` plus ``shard_map``:
+expressed as a ``jax.sharding.Mesh`` plus ``shard_map``:
 
-* ``dp`` (data parallel): pixel rows sharded across chips; the scene is
+* ``dp`` (data parallel): pixel rows sharded across devices; the scene is
   replicated, mirroring the reference's per-work-group local-memory copy of
   the whole scene (``kernels.cl:374-376``).
-* ``tp`` (tensor parallel): the triangle axis sharded across chips for
+* ``tp`` (tensor parallel): the triangle axis sharded across devices for
   scenes too large to replicate; nearest-hit results are combined with
-  pmin/psum collectives over ICI (see ops/intersect.py).
+  pmin/psum collectives (see ops/intersect.py).
+
+The devices of one host are joined all to all, so the mesh follows the
+algorithm alone: every selected device on dp unless tp is asked for.
 
 PP/SP/EP have no analogue in a per-pixel ray tracer and are deliberately
 absent (SURVEY.md §2f): the bounce chain is the only sequential dimension and

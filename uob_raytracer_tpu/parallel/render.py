@@ -2,14 +2,12 @@
 
 One ``shard_map`` wraps the whole per-shard pipeline (ray gen slice ->
 intersect -> shade -> bounce loop), so a frame is a single XLA program per
-chip with collectives only where the triangle axis is sharded. The image
+device with collectives only where the triangle axis is sharded. The image
 comes back sharded over rows; gathering it to the host is the analogue of
 the reference's blocking screen-buffer readback (``skeleton.cpp:179-181``)
 and stays off the hot loop in benchmarks.
 """
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +18,7 @@ from ..config import RenderConfig
 from ..ops.camera import gen_primary_rays
 from ..ops.intersect import prepare_scene
 from ..ops.shading import shade, shade_cpu_ref
+from ..render import render_image_rows, resolve_backend
 from ..scene import Scene
 
 
@@ -37,30 +36,30 @@ def _scene_specs(scene: Scene, tp: bool) -> Scene:
 
 def render_image_sharded(scene: Scene, cfg: RenderConfig, mesh: Mesh,
                          chunk_rows: int | None = None,
-                         backend: str = "jnp",
-                         shadow_quads=None) -> jax.Array:
+                         backend: str = "auto",
+                         shadow_quads=None,
+                         interpret: bool = False) -> jax.Array:
     """Render the float image [H, W, 3] sharded over ``mesh``.
 
     Rows are split over 'dp'; if the mesh's 'tp' axis is larger than 1 the
     triangle arrays are sharded over it (pad first with
     ``mesh.pad_triangles``) and nearest-hit/occlusion results are combined
-    with ICI collectives. Differentiable: gradients of replicated scene
-    leaves are psum'd automatically by the shard_map transpose.
+    with collectives. Differentiable: gradients of replicated scene leaves
+    are psum'd automatically by the shard_map transpose.
 
-    backend='pallas' with tp == 1 runs the fused kernel per shard, each
-    shard rendering its row band (path-replay backward included) — the
-    production multi-chip path on TPU. With tp > 1 it runs the per-shard
-    pipeline with the triangle scans in the streamed partial Pallas kernels
-    (``kernels/partial.py``) combined over ICI — also differentiable: the
-    partial kernels carry a path-replay custom_vjp whose triangle
-    cotangents are segment-summed per shard and psum'd by the shard_map
-    transpose, so tp training runs the production kernels end to end.
+    backend: as in ``render.render_image`` ('auto' resolves by platform).
+    With tp == 1 the 'pallas' backend renders each shard's row band through
+    the same path-replay custom_vjp as the single-device path. tp > 1 runs the jnp pipeline only ('auto' picks it; asking for
+    another backend raises).
 
     shadow_quads: static quad pairing for the pallas occlusion scan, as in
-    ``render.render_image`` — pass it so every shard runs the same
-    quad-merged headline kernel as the single-chip path ("auto" detects on
-    a concrete scene; traced scenes need an explicit pairing or None).
+    ``render.render_image`` ("auto" detects on a concrete scene; traced
+    scenes need an explicit pairing or None).
     """
+    tp = mesh.shape["tp"] > 1
+    backend = "jnp" if tp and backend == "auto" else resolve_backend(backend)
+    if tp and backend != "jnp":
+        raise ValueError(f"tp > 1 runs the jnp pipeline only, not {backend!r}")
     if backend == "pallas" and shadow_quads == "auto":
         from ..ops.quads import detect_shadow_quads
         shadow_quads = detect_shadow_quads(scene)
@@ -69,7 +68,6 @@ def render_image_sharded(scene: Scene, cfg: RenderConfig, mesh: Mesh,
     if shadow_quads is not None:
         from ..ops.quads import validate_shadow_quads
         validate_shadow_quads(scene, shadow_quads)
-    tp = mesh.shape["tp"] > 1
     tri_axis = "tp" if tp else None
     n_dp = mesh.shape["dp"]
     H, W = cfg.height, cfg.width
@@ -78,26 +76,13 @@ def render_image_sharded(scene: Scene, cfg: RenderConfig, mesh: Mesh,
     if tp and scene.tri_v0.shape[0] % mesh.shape["tp"]:
         raise ValueError("triangle count not divisible by tp; use pad_triangles")
     rows_per_shard = H // n_dp
-    # tp>1 + pallas: the jnp per-shard pipeline with its triangle scans
-    # routed through the streamed partial kernels (kernels/partial.py) and
-    # the pmin/tie/psum combine over ICI — the production large-scene path,
-    # forward AND backward (path-replay custom_vjp on the partial kernels).
-    tri_pass = "jnp"
-    if backend == "pallas" and tp:
-        backend, tri_pass = "jnp", "pallas"
-    if backend == "pallas":
-        if rows_per_shard % 8:
-            raise ValueError(f"rows per shard ({rows_per_shard}) must be a "
-                             f"multiple of the 8-row kernel tile")
-        from ..render import render_image_pallas_rows
+    if backend != "jnp":
+        def body_replay(scene_rep):
+            row0 = jax.lax.axis_index("dp") * rows_per_shard
+            return render_image_rows(scene_rep, cfg, row0, rows_per_shard,
+                                     backend, shadow_quads, interpret)
 
-        def body_pallas(scene_rep):
-            row0 = (jax.lax.axis_index("dp") * rows_per_shard).astype(
-                jnp.int32)
-            return render_image_pallas_rows(scene_rep, cfg, row0,
-                                            rows_per_shard, shadow_quads)
-
-        fn = shard_map(body_pallas, mesh=mesh,
+        fn = shard_map(body_replay, mesh=mesh,
                        in_specs=(_scene_specs(scene, False),),
                        out_specs=P("dp"), check_vma=False)
         return fn(scene)
@@ -117,8 +102,7 @@ def render_image_sharded(scene: Scene, cfg: RenderConfig, mesh: Mesh,
         if cfg.cpu_ref:
             colors = shade_cpu_ref(ds, cfg, start, d_flat)
         else:
-            colors = shade(ds, cfg, start, d_flat, gid_flat, tri_axis,
-                           tri_pass)
+            colors = shade(ds, cfg, start, d_flat, gid_flat, tri_axis)
         img = colors.reshape(rows_per_shard, W, A, 3)
         return img.sum(axis=2) / jnp.float32(A)
 

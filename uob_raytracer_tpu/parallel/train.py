@@ -2,10 +2,9 @@
 never had. Fits scene parameters (vertices, materials, light, camera) to a
 target image by gradient descent through the sharded renderer.
 
-The gradient flow is the north-star design: pixels/tiles sharded over chips,
-scene replicated, and the backward pass's parameter gradients all-reduced
-over ICI — the psum is inserted by the shard_map transpose and overlapped by
-XLA's latency-hiding scheduler.
+Pixel rows are sharded over devices and the scene is replicated; the
+backward pass's parameter gradients are all-reduced by the psum that the
+shard_map transpose inserts.
 """
 from __future__ import annotations
 
@@ -29,8 +28,8 @@ TRAINABLE = ("tri_v0", "tri_v1", "tri_v2", "tri_rgb", "light_pos",
 
 
 def image_loss(scene: Scene, target: jax.Array, cfg: RenderConfig,
-               mesh: Mesh, backend: str = "jnp",
-               shadow_quads=None) -> jax.Array:
+               mesh: Mesh, backend: str = "auto",
+               shadow_quads=None, interpret: bool = False) -> jax.Array:
     """MSE against a target image through the sharded renderer.
 
     shadow_quads: static quad pairing for the pallas occlusion scan.
@@ -39,7 +38,7 @@ def image_loss(scene: Scene, target: jax.Array, cfg: RenderConfig,
     stale pairings when the scene is concrete; traced scenes cannot be
     checked) — light/material-only fits may pass one safely."""
     img = render_image_sharded(scene, cfg, mesh, backend=backend,
-                               shadow_quads=shadow_quads)
+                               shadow_quads=shadow_quads, interpret=interpret)
     return jnp.mean(jnp.square(img - target))
 
 
@@ -54,7 +53,7 @@ class TrainOut(NamedTuple):
 def train_step(scene: Scene, target: jax.Array, cfg: RenderConfig,
                mesh: Mesh, lr: float = 1e-2,
                trainable: tuple[str, ...] = TRAINABLE,
-               backend: str = "jnp") -> TrainOut:
+               backend: str = "auto") -> TrainOut:
     """One SGD step on the selected scene leaves."""
     loss, grads = jax.value_and_grad(image_loss)(scene, target, cfg, mesh,
                                                  backend)
@@ -83,7 +82,7 @@ DEFAULT_LRS = {
 
 def fit(scene: Scene, target: jax.Array, cfg: RenderConfig, mesh: Mesh,
         steps: int = 60, lrs: dict[str, float] | None = None,
-        backend: str = "jnp", log_every: int = 0, eps: float = 1e-3):
+        backend: str = "auto", log_every: int = 0, eps: float = 1e-3):
     """Multi-parameter scene recovery: per-leaf Adam on the selected Scene
     leaves through the sharded differentiable renderer (gradients psum'd by
     the shard_map transpose). Returns (fitted scene, loss history).
